@@ -1,0 +1,166 @@
+// Blend forward of the tile rasterizer, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel langsplat_tpu/ops/rasterize_pallas.py::_fwd_kernel (:597),
+// launched there by _fwd_call (:1124) under blend_tiles. Same contract: for each 16x16
+// tile, front to back over the tile's depth-sorted instances,
+//   power = -0.5 (a dx^2 + c dy^2) - b dx dy      (skip the instance if power > 0)
+//   alpha = min(0.99, opacity * exp(power))       (skip it if alpha < 1/255)
+//   test_T = T (1 - alpha); if test_T < 1e-4 the pixel ends and this instance is
+//   excluded; otherwise C += alpha T (RGB, features) and T = test_T.
+// Pixels sit at integer coordinates (no +0.5). The background is added to RGB only.
+//
+// What bounds it on this card: the per-(instance, pixel) arithmetic (about 17 + 2C
+// FP32 operations and one expf per pair that is evaluated, C = 3 + F channels) and the
+// shared-memory reads that feed it. Device-memory traffic is small: each instance's
+// 9 + F attributes are fetched once per tile and the image is written once.
+//
+// Design: one block of 256 threads per tile, one thread per pixel. The block walks
+// gauss_id[tile_start[t] : tile_start[t+1]] in batches of 256; each thread gathers one
+// instance's attributes straight from the per-Gaussian arrays into shared memory
+// (no packed per-instance buffer is built, unlike the TPU path's pack_instances), and
+// then every thread reads them back as broadcasts. The block leaves as soon as all of
+// its pixels are done (__syncthreads_count). Results go channel-major straight into
+// [3 + F, H, W] and [H, W], with the ragged image edge masked. fp32 throughout, expf
+// (not __expf), no fast-math.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 16;
+constexpr int kBlock = kTile * kTile;
+constexpr float kAlphaMax = 0.99f;
+constexpr float kAlphaEps = 1.0f / 255.0f;
+constexpr float kTermEps = 1e-4f;
+
+template <int F>
+__global__ void __launch_bounds__(kBlock)
+blend_fwd_kernel(const float* __restrict__ means2d,    // [N, 2]
+                 const float* __restrict__ conics,     // [N, 3] (a, b, c)
+                 const float* __restrict__ opacities,  // [N]
+                 const bool* __restrict__ visible,     // [N]
+                 const float* __restrict__ colors,     // [N, 3]
+                 const float* __restrict__ features,   // [N, F]
+                 const int* __restrict__ gauss_id,     // [budget], sorted by (tile, depth)
+                 const int* __restrict__ tile_start,   // [num_tiles + 1]
+                 const float* __restrict__ bg,         // [3]
+                 int height, int width, int grid_x,
+                 float* __restrict__ image,            // [3 + F, H, W]
+                 float* __restrict__ t_final)          // [H, W]
+{
+    constexpr int C = 3 + F;
+    __shared__ float2 s_mean[kBlock];
+    __shared__ float4 s_conic_opa[kBlock];
+    __shared__ float s_attr[C][kBlock];
+
+    const int tile = blockIdx.x;
+    const int px = (tile % grid_x) * kTile + threadIdx.x % kTile;
+    const int py = (tile / grid_x) * kTile + threadIdx.x / kTile;
+    const bool inside = px < width && py < height;
+    const float fx = static_cast<float>(px);
+    const float fy = static_cast<float>(py);
+    const int start = tile_start[tile];
+    const int end = tile_start[tile + 1];
+
+    float T = 1.0f;
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+    bool done = !inside;
+
+    for (int base = start; base < end; base += kBlock) {
+        // every thread has finished the previous batch here, so shared memory may be
+        // overwritten; the block leaves once all of its pixels are done
+        if (__syncthreads_count(done) == kBlock) break;
+        const int i = base + threadIdx.x;
+        if (i < end) {
+            const int g = gauss_id[i];
+            s_mean[threadIdx.x] = make_float2(means2d[2 * g], means2d[2 * g + 1]);
+            s_conic_opa[threadIdx.x] = make_float4(
+                conics[3 * g], conics[3 * g + 1], conics[3 * g + 2],
+                visible[g] ? opacities[g] : 0.0f);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) s_attr[c][threadIdx.x] = colors[3 * g + c];
+#pragma unroll
+            for (int f = 0; f < F; ++f) s_attr[3 + f][threadIdx.x] = features[F * g + f];
+        }
+        __syncthreads();
+        const int count = min(kBlock, end - base);
+        for (int k = 0; k < count && !done; ++k) {
+            const float2 m = s_mean[k];
+            const float4 co = s_conic_opa[k];
+            const float dx = fx - m.x;
+            const float dy = fy - m.y;
+            const float power = -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
+            if (power > 0.0f) continue;
+            const float alpha = fminf(kAlphaMax, co.w * expf(power));
+            if (alpha < kAlphaEps) continue;
+            const float test_t = T * (1.0f - alpha);
+            if (test_t < kTermEps) {
+                done = true;
+                break;
+            }
+            const float w = alpha * T;
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[c] += w * s_attr[c][k];
+            T = test_t;
+        }
+    }
+
+    if (inside) {
+        const int hw = height * width;
+        const int p = py * width + px;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) image[c * hw + p] = acc[c] + T * bg[c];
+#pragma unroll
+        for (int c = 3; c < C; ++c) image[c * hw + p] = acc[c];
+        t_final[p] = T;
+    }
+}
+
+template <int F>
+int launch(const void* means2d, const void* conics, const void* opacities,
+           const void* visible, const void* colors, const void* features,
+           const void* gauss_id, const void* tile_start, const void* bg,
+           int height, int width, int grid_x, int num_tiles,
+           void* image, void* t_final, cudaStream_t stream) {
+    blend_fwd_kernel<F><<<num_tiles, kBlock, 0, stream>>>(
+        static_cast<const float*>(means2d), static_cast<const float*>(conics),
+        static_cast<const float*>(opacities), static_cast<const bool*>(visible),
+        static_cast<const float*>(colors), static_cast<const float*>(features),
+        static_cast<const int*>(gauss_id), static_cast<const int*>(tile_start),
+        static_cast<const float*>(bg), height, width, grid_x,
+        static_cast<float*>(image), static_cast<float*>(t_final));
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entry point for ctypes. Returns cudaGetLastError() after the launch (0 = success);
+// an unsupported feature count returns cudaErrorInvalidValue without launching.
+extern "C" int blend_fwd(const void* means2d, const void* conics, const void* opacities,
+                         const void* visible, const void* colors, const void* features,
+                         const void* gauss_id, const void* tile_start, const void* bg,
+                         int num_feat, int height, int width, int grid_x, int num_tiles,
+                         void* image, void* t_final, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BLEND_FWD_CASE(F)                                                            \
+    case F:                                                                          \
+        return launch<F>(means2d, conics, opacities, visible, colors, features,      \
+                         gauss_id, tile_start, bg, height, width, grid_x, num_tiles, \
+                         image, t_final, s);
+    switch (num_feat) {
+        BLEND_FWD_CASE(0)
+        BLEND_FWD_CASE(1)
+        BLEND_FWD_CASE(2)
+        BLEND_FWD_CASE(3)
+        BLEND_FWD_CASE(4)
+        BLEND_FWD_CASE(5)
+        BLEND_FWD_CASE(6)
+        BLEND_FWD_CASE(7)
+        BLEND_FWD_CASE(8)
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef BLEND_FWD_CASE
+}

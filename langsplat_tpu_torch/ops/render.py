@@ -1,0 +1,133 @@
+"""Top-level render of one view: preprocess -> binning -> tile blend.
+
+PyTorch counterpart of `langsplat_tpu/ops/render.py`, forward only. Returns the same
+dict: `render` [3,H,W], `language_feature_image` [F,H,W] (a [1,H,W] zero image without
+features), `final_transmittance`, `radii`, `visibility_filter` and the two drop counters
+that tell the caller to grow the instance budget or the per-Gaussian tile cap.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from langsplat_tpu_torch.core import sh as sh_lib
+from langsplat_tpu_torch.ops import projection
+from langsplat_tpu_torch.ops.rasterize_cuda import rasterize_forward
+from langsplat_tpu_torch.ops.tiles import bin_gaussians, instance_counts
+
+
+@dataclass(frozen=True)
+class RenderSettings:
+    """Rasterization settings for one view."""
+    image_height: int
+    image_width: int
+    tanfovx: float
+    tanfovy: float
+    sh_degree: int          # ACTIVE degree
+    scale_modifier: float = 1.0
+    include_feature: bool = True
+    tile_size: int = 16
+    budget: int = 0         # instance budget; 0 => 6 * capacity
+    max_tiles_per_gaussian: int = 32
+    # the 3DGS convert_SHs_python / compute_cov3D_python cross-check paths: compute
+    # SH colors / 3D covariances at the model layer and pass them in precomputed
+    convert_shs_python: bool = False
+    compute_cov3d_python: bool = False
+
+    @property
+    def grid_x(self) -> int:
+        return -(-self.image_width // self.tile_size)
+
+    @property
+    def grid_y(self) -> int:
+        return -(-self.image_height // self.tile_size)
+
+
+def render(
+    field,                        # GaussianField (or anything with its properties)
+    settings: RenderSettings,
+    viewmatrix: torch.Tensor,     # [4,4] row-vector world->view
+    projmatrix: torch.Tensor,     # [4,4] row-vector world->clip (view @ proj)
+    campos: torch.Tensor,         # [3]
+    bg_color: torch.Tensor,       # [3]
+    override_color: torch.Tensor | None = None,
+    cov3d_precomp: torch.Tensor | None = None,
+) -> dict[str, Any]:
+    cap = field.xyz.shape[0]
+    budget = settings.budget or 6 * cap
+
+    if settings.compute_cov3d_python and cov3d_precomp is None:
+        cov3d_precomp = field.get_covariance(settings.scale_modifier)
+    if settings.convert_shs_python and override_color is None:
+        dirs = field.xyz - campos[None, :]
+        dirs = dirs / (torch.linalg.vector_norm(dirs, dim=-1, keepdim=True) + 1e-12)
+        override_color = sh_lib.sh_to_color(
+            settings.sh_degree, field.get_features.transpose(-1, -2), dirs)
+
+    prep = projection.preprocess(
+        field.xyz,
+        field.get_scaling,
+        field.rotation,
+        None if override_color is not None else field.get_features,
+        viewmatrix, projmatrix, campos,
+        image_height=settings.image_height,
+        image_width=settings.image_width,
+        tanfovx=settings.tanfovx,
+        tanfovy=settings.tanfovy,
+        sh_degree=settings.sh_degree,
+        tile_size=settings.tile_size,
+        scale_modifier=settings.scale_modifier,
+        cov3d_precomp=cov3d_precomp,
+        colors_precomp=override_color,
+        alive=field.alive,
+    )
+
+    features = None
+    if settings.include_feature:
+        lf = field.get_language_feature
+        # epsilon inside the sqrt: keeps the gradient finite at lf == 0
+        norm = torch.sqrt(torch.sum(lf * lf, dim=-1, keepdim=True) + 1e-18)
+        features = lf / (norm + 1e-9)
+
+    opac = field.get_opacity[:, 0]
+    inst = bin_gaussians(
+        prep, grid_x=settings.grid_x, grid_y=settings.grid_y,
+        budget=budget, max_tiles_per_gaussian=settings.max_tiles_per_gaussian,
+        tile_size=settings.tile_size, opacities=opac)
+    out = rasterize_forward(
+        prep, inst, opac, features, bg_color,
+        image_height=settings.image_height, image_width=settings.image_width,
+        tile_size=settings.tile_size)
+
+    out["radii"] = prep.radii
+    out["visibility_filter"] = prep.radii > 0
+    out["instances_dropped"] = inst.dropped          # budget overflow: grow budget
+    out["rect_dropped"] = inst.rect_dropped          # tmax overflow: grow max_tiles
+    if "language_feature_image" not in out:
+        out["language_feature_image"] = torch.zeros(
+            (1,) + out["render"].shape[1:], dtype=out["render"].dtype,
+            device=out["render"].device)
+    return out
+
+
+def count_instances(field, settings: RenderSettings, viewmatrix, projmatrix,
+                    campos) -> int:
+    """Instance count (after the max_tiles cap) a render of this view would bin: a
+    preprocess-only probe that sizes the instance budget."""
+    cap = field.xyz.shape[0]
+    prep = projection.preprocess(
+        field.xyz, field.get_scaling, field.rotation, None,
+        viewmatrix, projmatrix, campos,
+        image_height=settings.image_height, image_width=settings.image_width,
+        tanfovx=settings.tanfovx, tanfovy=settings.tanfovy,
+        sh_degree=0, tile_size=settings.tile_size,
+        scale_modifier=settings.scale_modifier,
+        colors_precomp=torch.zeros((cap, 3), dtype=torch.float32, device=field.xyz.device),
+        alive=field.alive)
+    count = instance_counts(prep, tile_size=settings.tile_size,
+                            tmax=settings.max_tiles_per_gaussian,
+                            opacities=field.get_opacity[:, 0])
+    return int(count.sum())

@@ -1,0 +1,78 @@
+"""The PyTorch port stands alone: no module of `langsplat_tpu_torch/`, and nothing
+`chip_smoke.py` imports, reaches JAX or the JAX package; and its entry points do not
+fall back to the CPU quietly."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "langsplat_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "langsplat_tpu")
+
+
+def forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in imported_modules(f)
+           if forbidden(m)]
+    assert bad == []
+    assert not forbidden("langsplat_tpu_torch") and forbidden("langsplat_tpu.ops")
+
+
+def test_importing_the_port_never_reaches_jax():
+    """Import every module of the port, the CLI and chip_smoke.py in a fresh interpreter
+    whose import system refuses JAX and the JAX package."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = f"""
+import importlib, sys
+FORBIDDEN = {FORBIDDEN!r}
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == f or name.startswith(f + ".") for f in FORBIDDEN):
+            raise ImportError("the port imported " + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+for m in {modules!r} + ["chip_smoke"]:
+    importlib.import_module(m)
+leaked = [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+assert not leaked, leaked
+print("imported", len({modules!r}) + 1)
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+def test_render_full_needs_a_card_unless_asked(monkeypatch):
+    from langsplat_tpu_torch.config import PipelineConfig
+    from langsplat_tpu_torch.device import resolve_device
+    from langsplat_tpu_torch.train.loop import render_full
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_full(None, None, PipelineConfig(), 3, False, [0.0, 0.0, 0.0], device=None)
+    assert resolve_device("cpu") == torch.device("cpu")
