@@ -1,16 +1,19 @@
 """Argparse front end over the typed configs.
 
-PyTorch-port counterpart of `langsplat_tpu/cli/args.py`, with the flags the render path
-reads: the 3DGS model flags (--source_path/-s, --model_path/-m, --images/-i,
---resolution/-r, --white_background/-w, --feature_level/-f) and the rasterizer's
-pipeline flags. The optimization flags come with the training slice.
+PyTorch-port counterpart of `langsplat_tpu/cli/args.py`, with the same flags: the 3DGS
+model flags (--source_path/-s, --model_path/-m, --images/-i, --resolution/-r,
+--white_background/-w, --feature_level/-f), the rasterizer's pipeline flags and the
+optimization flags. --chunk and --interpret select the JAX package's Pallas chunk and
+CPU backend; the port accepts them so that a JAX command line runs unchanged, and has
+no use for them.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from langsplat_tpu_torch.config import ModelConfig, PipelineConfig, TrainConfig
+from langsplat_tpu_torch.config import (ModelConfig, OptimizationConfig, PipelineConfig,
+                                        TrainConfig)
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
@@ -32,6 +35,35 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--tile_size", type=int, default=16)
     p.add_argument("--budget_factor", type=int, default=6)
     p.add_argument("--allow_budget_truncation", action="store_true")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--chunk", type=int, default=128,
+                   help="the JAX package's Pallas chunk; no effect in the port")
+    p.add_argument("--interpret", action="store_true",
+                   help="the JAX package's CPU backend; no effect in the port (use "
+                        "--device cpu)")
+    for name in ("depth_shards", "data_shards", "gauss_shards"):
+        p.add_argument(f"--{name}", type=int, default=0,
+                       help="multi-device training: not in the port yet (refused)")
+    p.add_argument("--zero2", action="store_true",
+                   help="multi-device training: not in the port yet (refused)")
+    p.add_argument("--dp_views_per_device", type=int, default=1,
+                   help="multi-device training: not in the port yet (no effect)")
+
+
+def add_optimization_args(p: argparse.ArgumentParser) -> None:
+    d = OptimizationConfig()
+    for name in ("iterations", "position_lr_init", "position_lr_final",
+                 "position_lr_delay_mult", "position_lr_max_steps", "feature_lr",
+                 "opacity_lr", "language_feature_lr"):
+        p.add_argument(f"--{name}", type=type(getattr(d, name)), default=getattr(d, name))
+    p.add_argument("--include_feature", action="store_true", default=d.include_feature)
+    p.add_argument("--no_include_feature", dest="include_feature", action="store_false",
+                   help="train the original 3DGS (phase A)")
+    for name in ("scaling_lr", "rotation_lr", "percent_dense", "lambda_dssim",
+                 "densification_interval", "opacity_reset_interval",
+                 "densify_from_iter", "densify_until_iter", "densify_grad_threshold",
+                 "initial_capacity_factor", "capacity_growth_factor"):
+        p.add_argument(f"--{name}", type=type(getattr(d, name)), default=getattr(d, name))
 
 
 def extract_configs(args) -> TrainConfig:
@@ -46,5 +78,10 @@ def extract_configs(args) -> TrainConfig:
         compute_cov3d_python=args.compute_cov3D_python,
         tile_size=args.tile_size,
         budget_factor=args.budget_factor,
-        allow_budget_truncation=args.allow_budget_truncation)
-    return TrainConfig(model=model, pipeline=pipeline)
+        allow_budget_truncation=args.allow_budget_truncation,
+        **{name: getattr(args, name) for name in (
+            "debug", "depth_shards", "data_shards", "gauss_shards", "zero2")})
+    optimization = OptimizationConfig(**{
+        f: getattr(args, f) for f in OptimizationConfig.__dataclass_fields__
+        if hasattr(args, f)})
+    return TrainConfig(model=model, pipeline=pipeline, optimization=optimization)

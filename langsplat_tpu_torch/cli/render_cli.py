@@ -81,7 +81,8 @@ def main(argv=None):
             run_cfg.model.source_path = cfg.model.source_path
         cfg = run_cfg
 
-    scene = Scene(cfg.model, device=device, load_iteration=args.iteration)
+    scene = Scene(cfg.model, device=device, load_iteration=args.iteration,
+                  shuffle=False)
     field = scene.gaussians
     iteration = scene.loaded_iter
 

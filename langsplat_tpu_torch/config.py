@@ -1,10 +1,10 @@
-"""Typed configuration dataclasses and the run-config file reader.
+"""Typed configuration dataclasses and the run-config file reader and writer.
 
 PyTorch-port counterpart of `langsplat_tpu/config.py`: the same parameter names and
-defaults, so a run config (`cfg_args.json`) written by the JAX package loads here.
-Keys this package does not use yet (training) or at all (Pallas chunking, interpret
-mode, device meshes, profiling) are not fields here and are ignored when a file holds
-them.
+defaults, so a run config (`cfg_args.json`) written by either package loads in the
+other. Keys this package has no use for (Pallas chunking, interpret mode) are not
+fields here and are ignored when a file holds them. The multi-device options are
+fields, so that the training loop can refuse them until the port has a parallel path.
 """
 
 from __future__ import annotations
@@ -46,17 +46,62 @@ class PipelineConfig:
     allow_budget_truncation: bool = False  # opt-in: proceed (with a warning) when
                                            # the instance budget cap is hit instead
                                            # of failing loudly
+    debug: bool = False                # per-step budget/drop diagnostics
+    # multi-device training (the JAX package's device meshes); the port trains on one
+    # device and refuses values above 1 until its parallel slice
+    depth_shards: int = 0
+    data_shards: int = 0
+    gauss_shards: int = 0
+    zero2: bool = False
+
+
+@dataclass
+class OptimizationConfig:
+    """Mirrors the reference OptimizationParams plus the capacity management of a
+    fixed-capacity field."""
+    iterations: int = 30_000
+    position_lr_init: float = 0.000_16
+    position_lr_final: float = 0.000_001_6
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    language_feature_lr: float = 0.0025
+    include_feature: bool = True
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    # densification works inside a fixed alive-masked capacity, grown geometrically
+    # when densification overflows it
+    initial_capacity_factor: float = 1.5
+    capacity_growth_factor: float = 1.5
 
 
 @dataclass
 class TrainConfig:
-    """The run config's model and pipeline sections (the optimization section and the
-    training schedule come with the training slice)."""
     model: ModelConfig = field(default_factory=ModelConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
+    test_iterations: tuple = (7_000, 30_000)
+    save_iterations: tuple = (7_000, 30_000)
+    checkpoint_iterations: tuple = (7_000, 30_000)
+    start_checkpoint: str = ""
+    seed: int = 0
+    quiet: bool = False
+    # profiler trace window of the JAX package; the port refuses it for now
+    profile_dir: str = ""
+    profile_from: int = 50
+    profile_steps: int = 5
 
 
-_SECTIONS = {"model": ModelConfig, "pipeline": PipelineConfig}
+_SECTIONS = {"model": ModelConfig, "pipeline": PipelineConfig,
+             "optimization": OptimizationConfig}
 
 
 def _from_dict(cls, d: dict):
@@ -65,8 +110,23 @@ def _from_dict(cls, d: dict):
         if f.name not in d:
             continue
         v = d[f.name]
-        kwargs[f.name] = _from_dict(_SECTIONS[f.name], v) if f.name in _SECTIONS else v
+        if f.name in _SECTIONS:
+            kwargs[f.name] = _from_dict(_SECTIONS[f.name], v)
+        elif isinstance(v, list):
+            kwargs[f.name] = tuple(v)
+        else:
+            kwargs[f.name] = v
     return cls(**kwargs)
+
+
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2, default=list)
 
 
 def load_config(path: str) -> TrainConfig:

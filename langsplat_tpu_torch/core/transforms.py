@@ -107,3 +107,7 @@ def fov_to_focal(fov: float, pixels: int) -> float:
 
 def focal_to_fov(focal: float, pixels: int) -> float:
     return 2.0 * np.arctan(pixels / (2.0 * focal))
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))

@@ -13,6 +13,9 @@
 // FP32 operations and one expf per pair that is evaluated, C = 3 + F channels) and the
 // shared-memory reads that feed it. Device-memory traffic is small: each instance's
 // 9 + F attributes are fetched once per tile and the image is written once.
+// The falloff, alpha and transmittance arithmetic comes from blend_common.cuh, which
+// the backward (blend_bwd.cu) shares, so the backward's replay includes exactly the
+// pairs blended here and reaches the same final transmittance bit for bit.
 //
 // Design: one block of 256 threads per tile, one thread per pixel. The block walks
 // gauss_id[tile_start[t] : tile_start[t+1]] in batches of 256; each thread gathers one
@@ -25,13 +28,15 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kBlock = kTile * kTile;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaEps = 1.0f / 255.0f;
-constexpr float kTermEps = 1e-4f;
+using blend::kAlphaEps;
+using blend::kAlphaMax;
+using blend::kBlock;
+using blend::kTermEps;
+using blend::kTile;
 
 template <int F>
 __global__ void __launch_bounds__(kBlock)
@@ -91,11 +96,11 @@ blend_fwd_kernel(const float* __restrict__ means2d,    // [N, 2]
             const float4 co = s_conic_opa[k];
             const float dx = fx - m.x;
             const float dy = fy - m.y;
-            const float power = -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
+            const float power = blend::falloff_power(dx, dy, co.x, co.y, co.z);
             if (power > 0.0f) continue;
-            const float alpha = fminf(kAlphaMax, co.w * expf(power));
+            const float alpha = fminf(kAlphaMax, blend::raw_alpha(co.w, expf(power)));
             if (alpha < kAlphaEps) continue;
-            const float test_t = T * (1.0f - alpha);
+            const float test_t = blend::next_transmittance(T, alpha);
             if (test_t < kTermEps) {
                 done = true;
                 break;

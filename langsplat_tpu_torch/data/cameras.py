@@ -102,3 +102,22 @@ def load_camera(info, resolution_scale: float, resolution: int,
     return Camera(uid=uid, colmap_id=info.uid, R=info.R, T=info.T,
                   fov_x=info.fov_x, fov_y=info.fov_y, image=image,
                   image_name=info.image_name, width=w, height=h)
+
+
+def camera_to_json(idx: int, cam) -> dict:
+    """The cameras.json entry of a CameraInfo (or Camera), as the JAX package writes it."""
+    rt = np.zeros((4, 4))
+    rt[:3, :3] = cam.R.transpose()
+    rt[:3, 3] = cam.T
+    rt[3, 3] = 1.0
+    c2w = np.linalg.inv(rt)
+    return {
+        "id": idx,
+        "img_name": cam.image_name,
+        "width": cam.width,
+        "height": cam.height,
+        "position": c2w[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in c2w[:3, :3]],
+        "fy": transforms.fov_to_focal(cam.fov_y, cam.height),
+        "fx": transforms.fov_to_focal(cam.fov_x, cam.width),
+    }

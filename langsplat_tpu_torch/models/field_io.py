@@ -10,7 +10,10 @@ A JAX checkpoint (`chkpnt<iter>.npz`) stores the field's leaves as `field_<i>` i
 contributes no leaf: `alive` is `field_6` without features and `field_7` with them
 (the `__has_feature` flag says which). `load_field` reads that field group; its writer
 counterpart `save_field` stores only the field group and the scalars, which the JAX
-package's `load_field` reads back.
+package's `load_field` reads back. `save_checkpoint` adds the optimizer group
+(`opt_<i>`, the leaves of `trainer.opt_state_leaves`) and the densification statistics
+(`stats_<i>`, grad_accum, denom, max_radii2d), so a run resumes from it in full;
+`load_checkpoint` reads all three groups back.
 """
 
 from __future__ import annotations
@@ -110,12 +113,53 @@ def save_field(path: str, field: GaussianField, step: int, spatial_lr_scale: flo
                active_sh_degree: int) -> None:
     """Write a checkpoint holding the field group and the scalars (no optimizer or
     densification state), in the layout `load_field` reads."""
+    save_checkpoint(path, field, None, None, step, spatial_lr_scale, active_sh_degree)
+
+
+def save_checkpoint(path: str, field: GaussianField, opt_state: dict | None,
+                    stats, step: int, spatial_lr_scale: float,
+                    active_sh_degree: int) -> None:
+    """Write the training state: the field group, the optimizer group (if
+    `opt_state`), the densification-statistics group (if `stats`) and the scalars."""
+    from langsplat_tpu_torch.train.densify import STAT_NAMES
+    from langsplat_tpu_torch.train.trainer import opt_state_leaves
+
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     has_feature = field.language_feature is not None
     flat = {f"field_{i}": getattr(field, name).detach().cpu().numpy()
             for i, name in enumerate(_leaf_names(has_feature))}
+    if opt_state is not None:
+        flat.update({f"opt_{i}": leaf
+                     for i, leaf in enumerate(opt_state_leaves(opt_state))})
+    if stats is not None:
+        flat.update({f"stats_{i}": getattr(stats, name).detach().cpu().numpy()
+                     for i, name in enumerate(STAT_NAMES)})
     flat["__step"] = np.int64(step)
     flat["__spatial_lr_scale"] = np.float64(spatial_lr_scale)
     flat["__active_sh_degree"] = np.int64(active_sh_degree)
     flat["__has_feature"] = np.bool_(has_feature)
     np.savez(path, **flat)
+
+
+def checkpoint_has_state(path: str) -> bool:
+    """True if the checkpoint holds optimizer and statistics groups (a full resume is
+    possible)."""
+    with np.load(path, allow_pickle=False) as data:
+        return any(k.startswith("opt_") for k in data.files)
+
+
+def load_checkpoint(path: str, *, device: str | torch.device):
+    """Read the whole training state of a checkpoint written by `save_checkpoint`.
+    Returns (field, opt_state, stats, step, spatial_lr_scale, active_sh_degree)."""
+    from langsplat_tpu_torch.train.densify import STAT_NAMES, DensifyStats
+    from langsplat_tpu_torch.train.trainer import opt_state_from_numpy
+
+    field, step, slr, deg, has_feature = load_field(path, device=device)
+    with np.load(path, allow_pickle=False) as data:
+        opt_keys = sorted((k for k in data.files if k.startswith("opt_")),
+                          key=lambda k: int(k.split("_")[1]))
+        opt_state = opt_state_from_numpy([data[k] for k in opt_keys], has_feature,
+                                         device)
+        stats = DensifyStats(*(torch.as_tensor(data[f"stats_{i}"], device=device)
+                               for i in range(len(STAT_NAMES))))
+    return field, opt_state, stats, step, slr, deg

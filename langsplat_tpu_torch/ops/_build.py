@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel name -> launches through its wrapper since the last reset
-LAUNCHES: dict[str, int] = {"blend_fwd": 0}
+LAUNCHES: dict[str, int] = {"blend_fwd": 0, "blend_bwd": 0, "segsum": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,18 +1,24 @@
-"""Tile blend forward: the CUDA kernel `csrc/blend_fwd.cu`, its wrapper, and its plain
-PyTorch version.
+"""Tile blend, forward and backward: the CUDA kernels `csrc/blend_fwd.cu` and
+`csrc/blend_bwd.cu`, their wrappers, their plain PyTorch versions, and the
+`torch.autograd.Function` that joins them.
 
-Port of the forward half of `langsplat_tpu/ops/rasterize_pallas.py` (the `_fwd_kernel`
-blend, `:597`), with the output contract of `rasterize_pallas` (`:1247-1288`): `render`
-with `bg` added to RGB only, `final_transmittance`, and `language_feature_image`.
+Port of `langsplat_tpu/ops/rasterize_pallas.py`: the forward blend `_fwd_kernel` (`:597`),
+the backward `_bwd_kernel` (`:746`) with the packing gather's segment-sum backward
+(`segsum.py`), and the output contract of `rasterize_pallas` (`:1247-1288`): `render`
+with `bg` added to RGB only, `final_transmittance`, and `language_feature_image`;
+gradients of means2d (through `means2d_override`, the screen-space tap), conics,
+opacities, colors and features; `grad_mode` "full" or "feature".
 
 Only the semantics cross over. The TPU path packs every instance's attributes into a
 128-lane-aligned buffer (`pack_instances`), fuses several tiles per grid step (`NMEMB`,
 `GROUP_SORT`, `_build_sched`) and runs the transmittance as an MXU cumsum of logs; none
-of that is needed here. The kernel gathers each tile's instances straight from the
-per-Gaussian arrays. This slice is forward only: nothing here records gradients.
+of that is needed here. The kernels gather each tile's instances straight from the
+per-Gaussian arrays. The backward writes each instance's gradient sums into the
+instance's pre-sort slot, and `segsum.segment_sum` reduces them per Gaussian, which is
+the JAX packing-gather backward (`_gather_attrs_bwd`, `:216`) without the sort.
 
-Dispatch is by device only: tensors on the CPU go to the plain version, tensors on a
-CUDA device go to the kernel, and anything the kernel does not take raises.
+Dispatch is by device only: tensors on the CPU go to the plain versions, tensors on a
+CUDA device go to the kernels, and anything the kernels do not take raises.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from langsplat_tpu_torch.ops import _build
 from langsplat_tpu_torch.ops.projection import PreprocessOut
+from langsplat_tpu_torch.ops.segsum import segment_sum
 from langsplat_tpu_torch.ops.rasterize_reference import ALPHA_EPS, ALPHA_MAX, TERM_EPS
 from langsplat_tpu_torch.ops.tiles import InstanceBuffer
 
@@ -32,10 +39,58 @@ KERNEL_TILE = 16
 MAX_FEATURES = 8
 
 _SOURCE = "blend_fwd.cu"
+_BWD_SOURCE = "blend_bwd.cu"
+#: gradient rows of the backward's per-instance output, in order (then the features)
+GRAD_ROWS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "opacity",
+             "red", "green", "blue")
 
 
 def _grid(image_height: int, image_width: int, tile_size: int) -> tuple[int, int]:
     return -(-image_width // tile_size), -(-image_height // tile_size)
+
+
+def _pixel_grid(image_height, image_width, tile_size, device):
+    """Per-tile pixel coordinates [NT, P] (pixel p of tile t at row-major offset p),
+    and which of them lie inside the image."""
+    ts = tile_size
+    grid_x, grid_y = _grid(image_height, image_width, ts)
+    tiles = torch.arange(grid_x * grid_y, device=device)
+    lp = torch.arange(ts * ts, device=device)
+    px = ((tiles % grid_x) * ts)[:, None] + lp % ts
+    py = ((tiles // grid_x) * ts)[:, None] + lp // ts
+    return px, py, (px < image_width) & (py < image_height)
+
+
+def _to_image(x, image_height, image_width, tile_size):
+    """[NT, C, P] per-tile values -> [C, H, W] image."""
+    ts = tile_size
+    grid_x, grid_y = _grid(image_height, image_width, ts)
+    c = x.shape[1]
+    img = x.reshape(grid_y, grid_x, c, ts, ts).permute(2, 0, 3, 1, 4)
+    return img.reshape(c, grid_y * ts, grid_x * ts)[:, :image_height, :image_width]
+
+
+def _to_tiles(img, tile_size):
+    """[C, H, W] image -> [NT, C, P] per-tile values, zero past the image edge."""
+    ts = tile_size
+    c, h, w = img.shape
+    grid_x, grid_y = _grid(h, w, ts)
+    img = torch.nn.functional.pad(img, (0, grid_x * ts - w, 0, grid_y * ts - h))
+    img = img.reshape(c, grid_y, ts, grid_x, ts).permute(1, 3, 0, 2, 4)
+    return img.reshape(grid_y * grid_x, c, ts * ts)
+
+
+def _instance_alpha(means2d, conics, opa, gid, fx, fy):
+    """The falloff of instance `gid` [NT] at every pixel of its tile: (dx, dy, power,
+    exp(min(power, 0)), opacity * that, alpha clamped at ALPHA_MAX), each [NT, P]."""
+    m, co, o = means2d[gid], conics[gid], opa[gid]
+    dx = fx - m[:, 0:1]
+    dy = fy - m[:, 1:2]
+    power = (-0.5 * (co[:, 0:1] * dx * dx + co[:, 2:3] * dy * dy)
+             - co[:, 1:2] * dx * dy)
+    gexp = torch.exp(torch.clamp_max(power, 0.0))
+    raw = o[:, None] * gexp
+    return dx, dy, power, gexp, raw, torch.clamp_max(raw, ALPHA_MAX)
 
 
 def _blend_plain(means2d, conics, opacities, visible, colors, features, gauss_id,
@@ -48,20 +103,13 @@ def _blend_plain(means2d, conics, opacities, visible, colors, features, gauss_id
     (the ending one included) and the instances blended into it.
     """
     device = means2d.device
-    ts = tile_size
-    grid_x, grid_y = _grid(image_height, image_width, ts)
-    num_tiles = grid_x * grid_y
     attrs = colors if features is None else torch.cat([colors, features], dim=1)
     opa = torch.where(visible, opacities, 0.0)
     starts = tile_start[:-1].to(torch.int64)
     counts = (tile_start[1:] - tile_start[:-1]).to(torch.int64)
-
-    tiles = torch.arange(num_tiles, device=device)
-    lp = torch.arange(ts * ts, device=device)
-    px = ((tiles % grid_x) * ts)[:, None] + lp % ts            # [NT, P]
-    py = ((tiles // grid_x) * ts)[:, None] + lp // ts
-    inside = (px < image_width) & (py < image_height)
+    px, py, inside = _pixel_grid(image_height, image_width, tile_size, device)
     fx, fy = px.to(torch.float32), py.to(torch.float32)
+    num_tiles = px.shape[0]
 
     T = torch.ones(px.shape, dtype=torch.float32, device=device)
     acc = torch.zeros((num_tiles, attrs.shape[1]) + px.shape[1:], dtype=torch.float32,
@@ -77,33 +125,23 @@ def _blend_plain(means2d, conics, opacities, visible, colors, features, gauss_id
         live = (k < counts)[:, None] & ~done                   # [NT, P]
         gid = gauss_id[torch.clamp(starts + k, max=last)].to(torch.int64)
         gid = torch.where(k < counts, gid, 0)
-        m, co, o = means2d[gid], conics[gid], opa[gid]
-        dx = fx - m[:, 0:1]
-        dy = fy - m[:, 1:2]
-        power = (-0.5 * (co[:, 0:1] * dx * dx + co[:, 2:3] * dy * dy)
-                 - co[:, 1:2] * dx * dy)
-        alpha = torch.clamp_max(o[:, None] * torch.exp(torch.clamp_max(power, 0.0)),
-                                ALPHA_MAX)
+        _, _, power, _, _, alpha = _instance_alpha(means2d, conics, opa, gid, fx, fy)
         ok = live & (power <= 0.0) & (alpha >= ALPHA_EPS)
         test_t = T * (1.0 - alpha)
         term = ok & (test_t < TERM_EPS)
         blend = ok & ~term
         w = torch.where(blend, alpha * T, 0.0)
-        acc += w[:, None, :] * attrs[gid][:, :, None]
+        acc = acc + w[:, None, :] * attrs[gid][:, :, None]
         T = torch.where(blend, test_t, T)
         evaluated += live
         blended += blend
         done = done | term
 
-    acc[:, :3] += T[:, None, :] * bg[None, :, None]
-
-    def to_image(x):   # [NT, C, P] -> [C, H, W]
-        c = x.shape[1]
-        img = x.reshape(grid_y, grid_x, c, ts, ts).permute(2, 0, 3, 1, 4)
-        return img.reshape(c, grid_y * ts, grid_x * ts)[:, :image_height, :image_width]
-
-    return (to_image(acc), to_image(T[:, None])[0], to_image(evaluated[:, None])[0],
-            to_image(blended[:, None])[0])
+    acc = torch.cat([acc[:, :3] + T[:, None, :] * bg[None, :, None], acc[:, 3:]], dim=1)
+    size = dict(image_height=image_height, image_width=image_width, tile_size=tile_size)
+    return (_to_image(acc, **size), _to_image(T[:, None], **size)[0],
+            _to_image(evaluated[:, None], **size)[0],
+            _to_image(blended[:, None], **size)[0])
 
 
 def blend_forward_plain(means2d, conics, opacities, visible, colors, features, gauss_id,
@@ -137,18 +175,19 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def blend_forward_cuda(means2d, conics, opacities, visible, colors, features, gauss_id,
-                       tile_start, bg, *, image_height, image_width, tile_size):
-    """Launch the blend kernel on the tensors' CUDA device and current stream."""
+def _check_blend_inputs(kernel, means2d, conics, opacities, visible, colors, features,
+                        gauss_id, tile_start, image_height, image_width, tile_size):
+    """Raise on inputs the blend kernels do not take; returns (num_feat, grid_x,
+    num_tiles)."""
     device = means2d.device
     if device.type != "cuda":
-        raise ValueError(f"blend_forward_cuda needs CUDA tensors, got {device}")
+        raise ValueError(f"{kernel} needs CUDA tensors, got {device}")
     if tile_size != KERNEL_TILE:
-        raise ValueError(f"the blend kernel takes tile_size {KERNEL_TILE}, got {tile_size}")
+        raise ValueError(f"the blend kernels take tile_size {KERNEL_TILE}, got {tile_size}")
     n = means2d.shape[0]
     num_feat = 0 if features is None else features.shape[1]
     if num_feat > MAX_FEATURES:
-        raise ValueError(f"the blend kernel takes at most {MAX_FEATURES} feature "
+        raise ValueError(f"the blend kernels take at most {MAX_FEATURES} feature "
                          f"channels, got {num_feat}")
     grid_x, grid_y = _grid(image_height, image_width, tile_size)
     num_tiles = grid_x * grid_y
@@ -162,6 +201,17 @@ def blend_forward_cuda(means2d, conics, opacities, visible, colors, features, ga
         _check("features", features, f32, (n, num_feat), device)
     _check("gauss_id", gauss_id, torch.int32, (gauss_id.shape[0],), device)
     _check("tile_start", tile_start, torch.int32, (num_tiles + 1,), device)
+    return num_feat, grid_x, num_tiles
+
+
+def blend_forward_cuda(means2d, conics, opacities, visible, colors, features, gauss_id,
+                       tile_start, bg, *, image_height, image_width, tile_size):
+    """Launch the blend kernel on the tensors' CUDA device and current stream."""
+    device = means2d.device
+    num_feat, grid_x, num_tiles = _check_blend_inputs(
+        "blend_forward_cuda", means2d, conics, opacities, visible, colors, features,
+        gauss_id, tile_start, image_height, image_width, tile_size)
+    f32 = torch.float32
     _check("bg", bg, f32, (3,), device)
 
     lib = _build.load(_SOURCE)
@@ -204,14 +254,228 @@ def blend_args(prep: PreprocessOut, inst: InstanceBuffer, opacities: torch.Tenso
         inst.gauss_id, inst.tile_start, bg))
 
 
-def rasterize_forward(prep: PreprocessOut, inst: InstanceBuffer, opacities: torch.Tensor,
-                      features: torch.Tensor | None, bg: torch.Tensor, *,
-                      image_height: int, image_width: int, tile_size: int) -> dict:
-    """Tile rasterization forward: dict with `render` [3,H,W] (bg added to RGB),
-    `final_transmittance` [H,W] and, with features, `language_feature_image` [F,H,W]."""
-    image, t_final = blend_forward(
-        *blend_args(prep, inst, opacities, features, bg),
-        image_height=image_height, image_width=image_width, tile_size=tile_size)
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+def grad_rows(num_feat: int, grad_mode: str) -> int:
+    """Rows of the backward's per-instance output: GRAD_ROWS then the features, or only
+    the features in grad_mode "feature"."""
+    if grad_mode not in ("full", "feature"):
+        raise ValueError(f"grad_mode must be 'full' or 'feature', got {grad_mode}")
+    if grad_mode == "feature":
+        if num_feat == 0:
+            raise ValueError("grad_mode='feature' requires language feature channels")
+        return num_feat
+    return len(GRAD_ROWS) + num_feat
+
+
+def _blend_backward_plain(means2d, conics, opacities, visible, colors, features, gauss_id,
+                          tile_start, presort_slot, g_image, g_tfinal, total, t_final, *,
+                          grad_mode, image_height, image_width, tile_size):
+    """The backward kernel's arithmetic in plain PyTorch: the forward replayed front to
+    back, all tiles at once, one instance depth step at a time (memory stays
+    O(image + budget)). Returns (d_pre [R, budget], replayed final T [H, W])."""
+    device = means2d.device
+    num_feat = 0 if features is None else features.shape[1]
+    rows = grad_rows(num_feat, grad_mode)
+    feature_only = grad_mode == "feature"
+    budget = gauss_id.shape[0]
+    attrs = colors if features is None else torch.cat([colors, features], dim=1)
+    opa = torch.where(visible, opacities, 0.0)
+    starts = tile_start[:-1].to(torch.int64)
+    counts = (tile_start[1:] - tile_start[:-1]).to(torch.int64)
+    px, py, inside = _pixel_grid(image_height, image_width, tile_size, device)
+    fx, fy = px.to(torch.float32), py.to(torch.float32)
+    num_tiles = px.shape[0]
+
+    g = _to_tiles(g_image, tile_size)                          # [NT, C, P]
+    tot = _to_tiles(total[None], tile_size)[:, 0]               # [NT, P]
+    tail = _to_tiles((g_tfinal * t_final)[None], tile_size)[:, 0]
+    T = torch.ones(px.shape, dtype=torch.float32, device=device)
+    prefix = torch.zeros(px.shape, dtype=torch.float32, device=device)
+    done = ~inside
+    d_pre = torch.zeros((rows, budget), dtype=torch.float32, device=device)
+    depth = int(counts.max()) if num_tiles else 0
+    last = max(budget - 1, 0)
+    for k in range(depth):
+        if k % 32 == 0 and bool(done.all()):
+            break
+        has = k < counts
+        idx = torch.clamp(starts + k, max=last)
+        gid = torch.where(has, gauss_id[idx].to(torch.int64), 0)
+        dx, dy, power, gexp, raw, alpha = _instance_alpha(means2d, conics, opa, gid,
+                                                          fx, fy)
+        ok = has[:, None] & ~done & (power <= 0.0) & (alpha >= ALPHA_EPS)
+        test_t = T * (1.0 - alpha)
+        term = ok & (test_t < TERM_EPS)
+        blend = ok & ~term
+        w = torch.where(blend, alpha * T, 0.0)
+        if feature_only:
+            per_pixel = g[:, 3:] * w[:, None, :]                 # [NT, F, P]
+        else:
+            gdot = (g * attrs[gid][:, :, None]).sum(dim=1)      # [NT, P]
+            prefix = prefix + w * gdot
+            suffix = (tot - prefix) + tail
+            dalpha = torch.where(blend, T * gdot - suffix / (1.0 - alpha), 0.0)
+            dag = torch.where(raw < ALPHA_MAX, dalpha, 0.0)
+            dpower = dag * alpha
+            co = conics[gid]
+            a, b, c = co[:, 0:1], co[:, 1:2], co[:, 2:3]
+            per_pixel = torch.cat([
+                torch.stack([dpower * (a * dx + b * dy), dpower * (c * dy + b * dx),
+                             -0.5 * dpower * dx * dx, -dpower * dx * dy,
+                             -0.5 * dpower * dy * dy, dag * gexp], dim=1),
+                g * w[:, None, :]], dim=1)                      # [NT, R, P]
+        slot = presort_slot[idx].to(torch.int64)
+        valid = has & (slot < budget)
+        d_pre[:, slot[valid]] = per_pixel.sum(dim=2)[valid].T
+        T = torch.where(blend, test_t, T)
+        done = done | term
+    t_replay = _to_image(T[:, None], image_height, image_width, tile_size)[0]
+    return d_pre, t_replay
+
+
+def blend_backward_plain(*args, grad_mode, image_height, image_width, tile_size,
+                         return_t=False):
+    """Plain PyTorch version of `blend_backward` (same arguments and results)."""
+    d_pre, t_replay = _blend_backward_plain(
+        *args, grad_mode=grad_mode, image_height=image_height, image_width=image_width,
+        tile_size=tile_size)
+    return (d_pre, t_replay) if return_t else d_pre
+
+
+def blend_backward_cuda(means2d, conics, opacities, visible, colors, features, gauss_id,
+                        tile_start, presort_slot, g_image, g_tfinal, total, t_final, *,
+                        grad_mode, image_height, image_width, tile_size, return_t=False):
+    """Launch the blend backward kernel on the tensors' CUDA device and current
+    stream. The output is allocated zeroed here: instances a tile never reached are not
+    written by the kernel."""
+    device = means2d.device
+    num_feat, grid_x, num_tiles = _check_blend_inputs(
+        "blend_backward_cuda", means2d, conics, opacities, visible, colors, features,
+        gauss_id, tile_start, image_height, image_width, tile_size)
+    rows = grad_rows(num_feat, grad_mode)
+    budget = gauss_id.shape[0]
+    f32 = torch.float32
+    hw = (image_height, image_width)
+    _check("presort_slot", presort_slot, torch.int32, (budget,), device)
+    _check("g_image", g_image, f32, (3 + num_feat,) + hw, device)
+    _check("g_tfinal", g_tfinal, f32, hw, device)
+    _check("total", total, f32, hw, device)
+    _check("t_final", t_final, f32, hw, device)
+
+    lib = _build.load(_BWD_SOURCE)
+    fn = lib.blend_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    d_pre = torch.zeros((rows, budget), dtype=f32, device=device)
+    t_replay = torch.empty(hw, dtype=f32, device=device) if return_t else None
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(),
+                 visible.data_ptr(), colors.data_ptr(),
+                 None if features is None else features.data_ptr(),
+                 gauss_id.data_ptr(), tile_start.data_ptr(), presort_slot.data_ptr(),
+                 g_image.data_ptr(), g_tfinal.data_ptr(), total.data_ptr(),
+                 t_final.data_ptr(), num_feat, int(grad_mode == "feature"),
+                 image_height, image_width, grid_x, num_tiles, budget, d_pre.data_ptr(),
+                 None if t_replay is None else t_replay.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed with CUDA error {err}")
+    _build.LAUNCHES["blend_bwd"] += 1
+    return (d_pre, t_replay) if return_t else d_pre
+
+
+def blend_backward(means2d, conics, opacities, visible, colors, features, gauss_id,
+                   tile_start, presort_slot, g_image, g_tfinal, total, t_final, *,
+                   grad_mode, image_height, image_width, tile_size, return_t=False):
+    """Per-instance gradient sums of one blend: d_pre [R, budget], column
+    presort_slot[i] for instance i (rows GRAD_ROWS then the features, or only the
+    features in grad_mode "feature"), from the image gradient g_image [3+F, H, W], the
+    final-transmittance gradient g_tfinal [H, W] (the background's share included),
+    total = sum_ch g_ch out_ch [H, W] (out without the background) and the forward's
+    t_final. With return_t, also the replayed final transmittance. CPU tensors take the
+    plain version; CUDA tensors take the kernel."""
+    fn = blend_backward_cuda if means2d.device.type == "cuda" else blend_backward_plain
+    return fn(means2d, conics, opacities, visible, colors, features, gauss_id,
+              tile_start, presort_slot, g_image, g_tfinal, total, t_final,
+              grad_mode=grad_mode, image_height=image_height, image_width=image_width,
+              tile_size=tile_size, return_t=return_t)
+
+
+def backward_residuals(image, t_final, bg, g_image, g_t):
+    """(g_tfinal, total) for `blend_backward` from the forward's outputs (`image` with
+    the background added to RGB) and their gradients. The background term T * bg is
+    added after the blend, so its gradient joins dL/dT_final and it leaves Total."""
+    g_bg = (g_image[:3] * bg[:, None, None]).sum(dim=0)
+    total = (g_image * image).sum(dim=0) - g_bg * t_final
+    return (g_t + g_bg).contiguous(), total.contiguous()
+
+
+class _Blend(torch.autograd.Function):
+    """Blend forward (K1) and backward (K2 + the per-Gaussian segment sum K3)."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, opacities, colors, features, visible, gauss_id,
+                tile_start, presort_slot, gauss_offsets, bg, options):
+        image, t_final = blend_forward(
+            means2d, conics, opacities, visible, colors, features, gauss_id, tile_start,
+            bg, **options["size"])
+        ctx.options = options
+        ctx.save_for_backward(means2d, conics, opacities, colors, features, visible,
+                              gauss_id, tile_start, presort_slot, gauss_offsets, bg,
+                              image, t_final)
+        return image, t_final
+
+    @staticmethod
+    def backward(ctx, g_image, g_t):
+        (means2d, conics, opacities, colors, features, visible, gauss_id, tile_start,
+         presort_slot, gauss_offsets, bg, image, t_final) = ctx.saved_tensors
+        grad_mode = ctx.options["grad_mode"]
+        g_tfinal, total = backward_residuals(image, t_final, bg, g_image.contiguous(),
+                                             g_t)
+        d_pre = blend_backward(
+            means2d, conics, opacities, visible, colors, features, gauss_id, tile_start,
+            presort_slot, g_image.contiguous(), g_tfinal, total, t_final,
+            grad_mode=grad_mode, **ctx.options["size"])
+        budget = gauss_id.shape[0]
+        n = means2d.shape[0]
+        ends = torch.clamp(gauss_offsets, 0, budget).to(torch.int32).contiguous()
+        per_gauss = segment_sum(d_pre, ends, n).T                # [N, R]
+        none = (None,) * 7
+        if grad_mode == "feature":
+            return (None, None, None, None, per_gauss) + none
+        base = len(GRAD_ROWS)
+        d_features = None if features is None else per_gauss[:, base:]
+        d_opacities = torch.where(visible, per_gauss[:, 5], 0.0)
+        return (per_gauss[:, 0:2], per_gauss[:, 2:5], d_opacities, per_gauss[:, 6:9],
+                d_features) + none
+
+
+def rasterize(prep: PreprocessOut, inst: InstanceBuffer, opacities: torch.Tensor,
+              features: torch.Tensor | None, bg: torch.Tensor, *, image_height: int,
+              image_width: int, tile_size: int,
+              means2d_override: torch.Tensor | None = None,
+              grad_mode: str = "full") -> dict:
+    """Differentiable tile rasterization: dict with `render` [3,H,W] (bg added to RGB),
+    `final_transmittance` [H,W] and, with features, `language_feature_image` [F,H,W].
+
+    Gradients reach means2d (or `means2d_override`, the screen-space tap), conics,
+    opacities (zero where not visible), colors and features; with grad_mode "feature"
+    only the features."""
+    num_feat = 0 if features is None else features.shape[1]
+    grad_rows(num_feat, grad_mode)   # validates grad_mode
+    means2d = prep.means2d if means2d_override is None else means2d_override
+    options = dict(grad_mode=grad_mode, size=dict(
+        image_height=image_height, image_width=image_width, tile_size=tile_size))
+    image, t_final = _Blend.apply(
+        *(None if t is None else t.contiguous() for t in (
+            means2d, prep.conics, opacities, prep.colors, features, prep.visible,
+            inst.gauss_id, inst.tile_start, inst.presort_slot, inst.gauss_offsets, bg)),
+        options)
     out = {"render": image[0:3], "final_transmittance": t_final}
     if features is not None:
         out["language_feature_image"] = image[3:]

@@ -1,9 +1,13 @@
-"""Top-level render of one view: preprocess -> binning -> tile blend.
+"""Top-level differentiable render of one view: preprocess -> binning -> tile blend.
 
-PyTorch counterpart of `langsplat_tpu/ops/render.py`, forward only. Returns the same
-dict: `render` [3,H,W], `language_feature_image` [F,H,W] (a [1,H,W] zero image without
-features), `final_transmittance`, `radii`, `visibility_filter` and the two drop counters
-that tell the caller to grow the instance budget or the per-Gaussian tile cap.
+PyTorch counterpart of `langsplat_tpu/ops/render.py`. Returns the same dict: `render`
+[3,H,W], `language_feature_image` [F,H,W] (a [1,H,W] zero image without features),
+`final_transmittance`, `radii`, `visibility_filter` and the two drop counters that tell
+the caller to grow the instance budget or the per-Gaussian tile cap. Gradients flow
+through the blend (`rasterize_cuda.rasterize`) and the preprocess into the field's
+parameters; binning runs on detached inputs. `screenspace_offset` is the means2D
+gradient tap: pass zeros [cap, 2] that require grad and read their gradient to drive
+densification statistics.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ import torch
 
 from langsplat_tpu_torch.core import sh as sh_lib
 from langsplat_tpu_torch.ops import projection
-from langsplat_tpu_torch.ops.rasterize_cuda import rasterize_forward
+from langsplat_tpu_torch.ops.projection import PreprocessOut
+from langsplat_tpu_torch.ops.rasterize_cuda import rasterize
 from langsplat_tpu_torch.ops.tiles import bin_gaussians, instance_counts
 
 
@@ -32,6 +37,8 @@ class RenderSettings:
     tile_size: int = 16
     budget: int = 0         # instance budget; 0 => 6 * capacity
     max_tiles_per_gaussian: int = 32
+    grad_mode: str = "full"  # "feature": the backward computes only the language-
+                             # feature gradients (the feature phase freezes geometry)
     # the 3DGS convert_SHs_python / compute_cov3D_python cross-check paths: compute
     # SH colors / 3D covariances at the model layer and pass them in precomputed
     convert_shs_python: bool = False
@@ -53,6 +60,7 @@ def render(
     projmatrix: torch.Tensor,     # [4,4] row-vector world->clip (view @ proj)
     campos: torch.Tensor,         # [3]
     bg_color: torch.Tensor,       # [3]
+    screenspace_offset: torch.Tensor | None = None,   # [cap, 2] zeros (grad tap)
     override_color: torch.Tensor | None = None,
     cov3d_precomp: torch.Tensor | None = None,
 ) -> dict[str, Any]:
@@ -85,6 +93,10 @@ def render(
         alive=field.alive,
     )
 
+    means2d = prep.means2d
+    if screenspace_offset is not None:
+        means2d = means2d + screenspace_offset
+
     features = None
     if settings.include_feature:
         lf = field.get_language_feature
@@ -94,13 +106,15 @@ def render(
 
     opac = field.get_opacity[:, 0]
     inst = bin_gaussians(
-        prep, grid_x=settings.grid_x, grid_y=settings.grid_y,
+        PreprocessOut(*(t.detach() for t in prep)),
+        grid_x=settings.grid_x, grid_y=settings.grid_y,
         budget=budget, max_tiles_per_gaussian=settings.max_tiles_per_gaussian,
-        tile_size=settings.tile_size, opacities=opac)
-    out = rasterize_forward(
+        tile_size=settings.tile_size, opacities=opac.detach())
+    out = rasterize(
         prep, inst, opac, features, bg_color,
         image_height=settings.image_height, image_width=settings.image_width,
-        tile_size=settings.tile_size)
+        tile_size=settings.tile_size, means2d_override=means2d,
+        grad_mode=settings.grad_mode)
 
     out["radii"] = prep.radii
     out["visibility_filter"] = prep.radii > 0

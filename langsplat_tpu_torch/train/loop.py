@@ -1,17 +1,36 @@
-"""Render-time pieces of the training loop: settings, the instance-budget and tile-cap
-policies, and `render_full`, which renders one view at whatever caps it needs.
+"""The two-phase training loop on one device, and `render_full`.
 
-PyTorch-port counterpart of `make_settings`, `BudgetPolicy`, `TmaxPolicy` and
-`render_full` in `langsplat_tpu/train/loop.py`. The training loop itself comes with the
-training slice.
+PyTorch-port counterpart of `langsplat_tpu/train/loop.py`: SH-degree warmup every 1000
+iterations, the seeded per-epoch camera schedule, densify/clone/split/prune between
+densify_from and densify_until every densification_interval, opacity resets, periodic
+test/save/checkpoint, all under the fixed-capacity regime: Adam moment rows are zeroed
+for churned slots and the capacity grows geometrically when densification overflows.
+A step whose render dropped instances (budget) or tile positions (max_tiles) is
+discarded and re-run at grown caps, as the JAX loop does.
+
+The JAX loop's multi-device branches (depth-, data- and Gaussian-sharded training), its
+network GUI and its profiler trace are not ported yet: `training` refuses those options.
 """
 
 from __future__ import annotations
 
+import os
+import random
+
+import numpy as np
 import torch
 
+from langsplat_tpu_torch.config import TrainConfig, save_config
+from langsplat_tpu_torch.core import losses as loss_lib
+from langsplat_tpu_torch.data.prefetch import FeaturePrefetcher
+from langsplat_tpu_torch.data.scene import Scene
 from langsplat_tpu_torch.device import resolve_device
-from langsplat_tpu_torch.ops.render import RenderSettings, render
+from langsplat_tpu_torch.models import field_io
+from langsplat_tpu_torch.models.gaussian_field import grow_capacity
+from langsplat_tpu_torch.ops.render import RenderSettings, count_instances, render
+from langsplat_tpu_torch.train import densify as dn
+from langsplat_tpu_torch.train import trainer as tr
+from langsplat_tpu_torch.utils.logging import RunLogger, Timer
 
 
 def make_settings(cam, pipe, active_sh_degree: int, include_feature: bool,
@@ -25,7 +44,10 @@ def make_settings(cam, pipe, active_sh_degree: int, include_feature: bool,
         budget=budget or pipe.budget_factor * capacity,
         max_tiles_per_gaussian=max_tiles or pipe.max_tiles_per_gaussian,
         convert_shs_python=pipe.convert_shs_python,
-        compute_cov3d_python=pipe.compute_cov3d_python)
+        compute_cov3d_python=pipe.compute_cov3d_python,
+        # the feature phase freezes geometry: the backward then only needs
+        # d(language_feature), which skips the geometric gradient chain in the kernel
+        grad_mode="feature" if include_feature else "full")
 
 
 class BudgetPolicy:
@@ -146,3 +168,278 @@ def render_full(field, cam, pipe, active_sh_degree, include_feature, bg,
                 f"+ {rect} rect positions at max_tiles={tmax_policy.tmax} "
                 f"(capacity {field.capacity}); raise pipeline.budget_factor or "
                 f"opt into truncation with pipeline.allow_budget_truncation")
+
+
+def _device_image(cam, device):
+    """The camera's ground-truth image on `device`, copied once and kept on the camera."""
+    img = getattr(cam, "_dev_image", None)
+    if img is None or img.device != device:
+        img = torch.as_tensor(cam.image).to(device)
+        cam._dev_image = img
+    return img
+
+
+def _camera_tensors(cam, device):
+    return tuple(torch.as_tensor(m, dtype=torch.float32).to(device) for m in (
+        cam.world_view_transform, cam.full_proj_transform, cam.camera_center))
+
+
+def _refuse_unported(cfg: TrainConfig, gui_port: int) -> None:
+    pipe = cfg.pipeline
+    asked = [f"--{name} {getattr(pipe, name)}" for name in
+             ("depth_shards", "data_shards", "gauss_shards") if getattr(pipe, name) > 1]
+    if pipe.zero2:
+        asked.append("--zero2")
+    if gui_port:
+        asked.append(f"--port {gui_port} (network GUI)")
+    if cfg.profile_dir:
+        asked.append(f"--profile_dir {cfg.profile_dir}")
+    if asked:
+        raise NotImplementedError(
+            "the PyTorch port trains on one device without the network GUI or the "
+            "profiler trace; not ported yet: " + ", ".join(asked))
+
+
+def training(cfg: TrainConfig, device: str | torch.device | None = None,
+             gui_host: str = "127.0.0.1", gui_port: int = 0) -> dict:
+    """Train one phase on `device` (None: the CUDA card, raising without one).
+    Returns the final field, optimizer state, statistics, scene, loss history and
+    active SH degree."""
+    device = resolve_device(device)
+    _refuse_unported(cfg, gui_port)
+    mcfg, ocfg, pipe = cfg.model, cfg.optimization, cfg.pipeline
+    include_feature = ocfg.include_feature
+    logger = RunLogger(mcfg.model_path or None, quiet=cfg.quiet)
+
+    scene = Scene(mcfg, device=device,
+                  initial_capacity_factor=ocfg.initial_capacity_factor, seed=cfg.seed)
+    field = scene.gaussians
+    spatial_lr_scale = scene.cameras_extent
+    active_sh_degree = 0
+    first_iter = 0
+
+    if include_feature and not cfg.start_checkpoint:
+        raise ValueError("feature training requires a phase-A checkpoint "
+                         "(--start_checkpoint)")
+
+    resume_full = False
+    if cfg.start_checkpoint:
+        field, first_iter, spatial_lr_scale, active_sh_degree, ck_has_feature = \
+            field_io.load_field(cfg.start_checkpoint, device=device)
+        # a same-phase checkpoint with optimizer and statistics groups resumes the
+        # whole training state; a cross-phase one restores the field only
+        resume_full = (ck_has_feature == include_feature
+                       and field_io.checkpoint_has_state(cfg.start_checkpoint))
+        if include_feature and not ck_has_feature:
+            first_iter = 0   # the phase handoff restarts the iteration count
+    if include_feature:
+        field = field.with_language_feature(
+            3, generator=torch.Generator().manual_seed(cfg.seed))
+
+    optimizer = tr.make_optimizer(ocfg, spatial_lr_scale, include_feature)
+    opt_state = optimizer.init(tr.extract_params(field, include_feature))
+    stats = dn.DensifyStats.zeros(field.capacity, device)
+    if resume_full:
+        field, opt_state, stats, first_iter, spatial_lr_scale, active_sh_degree = \
+            field_io.load_checkpoint(cfg.start_checkpoint, device=device)
+        logger.log(f"resumed full training state at iteration {first_iter} "
+                   f"(capacity {field.capacity})")
+
+    if mcfg.model_path:
+        save_config(cfg, os.path.join(mcfg.model_path, "cfg_args.json"))
+
+    bg = torch.tensor([1.0, 1.0, 1.0] if mcfg.white_background else [0.0, 0.0, 0.0],
+                      device=device)
+    budget_policy = BudgetPolicy(pipe, field.capacity)
+    tmax_policy = TmaxPolicy(pipe, scene.get_train_cameras() + scene.get_test_cameras())
+    if pipe.adaptive_budget:
+        probe_cam = scene.get_train_cameras()[0]
+        probe_settings = make_settings(probe_cam, pipe, 0, include_feature,
+                                       field.capacity, budget=BudgetPolicy.GRANULE,
+                                       max_tiles=tmax_policy.tmax)
+        with torch.no_grad():
+            cnt = count_instances(field, probe_settings,
+                                  *_camera_tensors(probe_cam, device))
+        budget_policy.resize(field.capacity, cnt)
+        logger.log(f"instance budget {budget_policy.budget} "
+                   f"(probed {cnt}, cap {budget_policy.cap(field.capacity)})")
+
+    # per-epoch camera order, a pure function of (seed, epoch), so a resumed run sees
+    # the view sequence an uninterrupted run would (the JAX package's schedule)
+    train_cams = scene.get_train_cameras()
+    cur_epoch, epoch_order = -1, []
+
+    def cam_at(iteration: int):
+        nonlocal cur_epoch, epoch_order
+        epoch, pos = divmod(iteration - 1, len(train_cams))
+        if epoch != cur_epoch:
+            epoch_order = list(range(len(train_cams)))
+            random.Random(cfg.seed * 1_000_003 + epoch).shuffle(epoch_order)
+            cur_epoch = epoch
+        return train_cams[epoch_order[pos]], pos
+
+    timer = Timer(device)
+    history: list[float] = []
+    prefetcher = (FeaturePrefetcher(mcfg.lf_path, mcfg.feature_level, device=device)
+                  if include_feature else None)
+
+    for iteration in range(first_iter + 1, ocfg.iterations + 1):
+        if iteration % 1000 == 0 and active_sh_degree < mcfg.sh_degree:
+            active_sh_degree += 1
+
+        cam, epoch_pos = cam_at(iteration)
+        if prefetcher is not None and epoch_pos + 1 < len(train_cams):
+            prefetcher.schedule(train_cams[epoch_order[epoch_pos + 1]])
+        view, proj, campos = _camera_tensors(cam, device)
+
+        timer.start()
+        while True:
+            settings = make_settings(cam, pipe, active_sh_degree, include_feature,
+                                     field.capacity, budget=budget_policy.budget,
+                                     max_tiles=tmax_policy.tmax)
+            if include_feature:
+                gt_feat, gt_mask = prefetcher.get(cam)
+                out = tr.train_step_feature(field, opt_state, stats, view, proj, campos,
+                                            gt_feat, gt_mask, bg, settings=settings,
+                                            optimizer=optimizer)
+            else:
+                out = tr.train_step_rgb(field, opt_state, stats, view, proj, campos,
+                                        _device_image(cam, device), bg,
+                                        settings=settings, optimizer=optimizer,
+                                        lambda_dssim=ocfg.lambda_dssim)
+            dropped, rect = int(out.dropped), int(out.rect_dropped)
+            if dropped == 0 and rect == 0:
+                break
+            # discard the truncated step (field, opt_state and stats are still the
+            # values before it) and re-run it at the grown cap(s)
+            grew = False
+            if rect > 0 and tmax_policy.grow():
+                logger.log(f"[iter {iteration}] max_tiles_per_gaussian -> "
+                           f"{tmax_policy.tmax} ({rect} rect positions dropped)")
+                grew = True
+            if dropped > 0 and budget_policy.grow(field.capacity):
+                logger.log(f"[iter {iteration}] instance budget -> "
+                           f"{budget_policy.budget} ({dropped} dropped)")
+                grew = True
+            if not grew:
+                msg = (f"[iter {iteration}] {dropped} instances dropped at the budget "
+                       f"cap {budget_policy.cap(field.capacity)} and {rect} rect "
+                       f"positions dropped at max_tiles={tmax_policy.tmax} (capacity "
+                       f"{field.capacity}, budget_factor {pipe.budget_factor}); raise "
+                       f"pipeline.budget_factor, or opt into truncation with "
+                       f"pipeline.allow_budget_truncation")
+                if not pipe.allow_budget_truncation:
+                    raise RuntimeError(msg)
+                logger.log("WARNING (truncated step): " + msg)
+                break
+        field, opt_state, stats = out.field, out.opt_state, out.stats
+        elapsed = timer.stop()
+
+        loss_val = float(out.loss)
+        if pipe.debug:
+            logger.log(f"[iter {iteration}] debug: budget={budget_policy.budget} "
+                       f"cap={budget_policy.cap(field.capacity)} dropped={dropped} "
+                       f"alive={field.num_alive}/{field.capacity}")
+        history.append(loss_val)
+        logger.progress(iteration, loss_val,
+                        extra=f" n={field.num_alive} {elapsed:.0f}ms")
+        logger.scalar("train_loss_patches/l1_loss", float(out.l1), iteration)
+        logger.scalar("train_loss_patches/total_loss", loss_val, iteration)
+        logger.scalar("iter_time", elapsed, iteration)
+
+        # densification (phase A only)
+        if not include_feature and iteration < ocfg.densify_until_iter:
+            if (iteration > ocfg.densify_from_iter
+                    and iteration % ocfg.densification_interval == 0):
+                # the split noise is a pure function of (seed, iteration), so a resumed
+                # run draws what an uninterrupted run would
+                gen = torch.Generator(device).manual_seed(
+                    cfg.seed * 1_000_003 + iteration)
+                res = dn.densify_and_prune(
+                    field, stats, gen, extent=scene.cameras_extent,
+                    grad_threshold=ocfg.densify_grad_threshold,
+                    percent_dense=ocfg.percent_dense, min_opacity=0.005,
+                    use_size_threshold=iteration > ocfg.opacity_reset_interval,
+                    size_threshold=20.0)
+                field, stats = res.field, res.stats
+                opt_state = tr.zero_moment_rows(opt_state, res.reset_mask)
+                overflow = int(res.overflow)
+                if overflow > 0:
+                    old_cap = field.capacity
+                    new_cap = int(old_cap * ocfg.capacity_growth_factor)
+                    logger.log(f"[iter {iteration}] capacity {old_cap} -> {new_cap} "
+                               f"(overflow {overflow})")
+                    field = grow_capacity(field, new_cap)
+                    opt_state = tr.pad_opt_state(opt_state, old_cap, new_cap)
+                    stats = dn.DensifyStats.zeros(new_cap, device)
+                logger.scalar("total_points", int(res.num_alive), iteration)
+
+            if iteration % ocfg.opacity_reset_interval == 0 or (
+                    mcfg.white_background and iteration == ocfg.densify_from_iter):
+                field = dn.reset_opacity(field)
+                opt_state = tr.zero_moment_rows(
+                    opt_state, torch.ones(field.capacity, dtype=torch.bool,
+                                          device=device), only_label="opacity")
+
+        if iteration in cfg.test_iterations:
+            report = evaluate_psnr(field, scene, pipe, active_sh_degree, include_feature,
+                                   bg, budget=budget_policy.budget,
+                                   max_tiles=tmax_policy.tmax,
+                                   lf_path=mcfg.lf_path if include_feature else None,
+                                   feature_level=mcfg.feature_level)
+            for name, rep in report.items():
+                logger.log(f"[ITER {iteration}] Evaluating {name}: L1 {rep['l1']:.5f} "
+                           f"PSNR {rep['psnr']:.3f}")
+                logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"], iteration)
+                logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"], iteration)
+                if rep.get("feature_l1") is not None:
+                    logger.log(f"[ITER {iteration}] Evaluating {name}: feature-L1 "
+                               f"{rep['feature_l1']:.5f}")
+                    logger.scalar(f"{name}/loss_viewpoint - feature_l1",
+                                  rep["feature_l1"], iteration)
+
+        if iteration in cfg.save_iterations and mcfg.model_path:
+            logger.log(f"[ITER {iteration}] Saving Gaussians")
+            scene.save(iteration, field)
+
+        if iteration in cfg.checkpoint_iterations and mcfg.model_path:
+            logger.log(f"[ITER {iteration}] Saving Checkpoint")
+            field_io.save_checkpoint(
+                os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"), field,
+                opt_state, stats, iteration, spatial_lr_scale, active_sh_degree)
+
+    if prefetcher is not None:
+        prefetcher.close()
+    logger.close()
+    return {"field": field, "opt_state": opt_state, "stats": stats, "scene": scene,
+            "history": history, "active_sh_degree": active_sh_degree}
+
+
+@torch.no_grad()
+def evaluate_psnr(field, scene: Scene, pipe, active_sh_degree, include_feature, bg,
+                  max_train_views: int = 5, budget: int = 0, max_tiles: int = 0,
+                  lf_path: str | None = None, feature_level: int = 0) -> dict:
+    """Test-time L1/PSNR of the RGB render over the test views and the first training
+    views; in the feature phase with `lf_path`, also the masked feature L1."""
+    device = field.device
+    out = {}
+    for name, cams in (("test", scene.get_test_cameras()),
+                       ("train", scene.get_train_cameras()[:max_train_views])):
+        if not cams:
+            continue
+        l1s, psnrs, feat_l1s = [], [], []
+        for cam in cams:
+            r = render_full(field, cam, pipe, active_sh_degree, include_feature, bg,
+                            budget=budget, max_tiles=max_tiles, device=device)
+            img = torch.clamp(r["render"], 0, 1)
+            gt = torch.clamp(_device_image(cam, device), 0, 1)
+            l1s.append(float(loss_lib.l1_loss(img, gt)))
+            psnrs.append(float(loss_lib.psnr(img, gt)))
+            if include_feature and lf_path:
+                gt_feat, gt_mask = cam.get_language_feature(lf_path, feature_level)
+                feat_l1s.append(float(loss_lib.masked_l1_loss(
+                    r["language_feature_image"], torch.as_tensor(gt_feat).to(device),
+                    torch.as_tensor(gt_mask).to(device))))
+        out[name] = {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs)),
+                     "feature_l1": float(np.mean(feat_l1s)) if feat_l1s else None}
+    return out

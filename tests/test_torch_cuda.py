@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the CUDA blend kernel against its plain PyTorch version, and
-the whole render on the card against the same render on the CPU.
+"""PyTorch port on the card: the CUDA kernels (blend forward, blend backward, segment
+sum) against their plain PyTorch versions, and the whole render and one training step of
+each phase on the card against the same on the CPU.
 
 Every test here needs a CUDA device; each one decides that in the `cuda_device` fixture
 and skips without one. This file imports only torch, numpy and the port, so it runs on
@@ -138,3 +139,125 @@ def test_render_on_card_matches_cpu(cuda_device):
         assert float((err > CARD_ATOL).float().mean()) < 1e-3, k
     assert int(outs["cuda"]["instances_dropped"]) == 0
     assert int(outs["cuda"]["visibility_filter"].sum()) > n // 2
+
+
+def residuals(image, t_final, bg, seed):
+    """Random image and transmittance gradients, and the backward's residuals."""
+    gen = torch.Generator(device=image.device).manual_seed(seed)
+    g_image = torch.randn(image.shape, generator=gen, device=image.device)
+    g_t = torch.randn(t_final.shape, generator=gen, device=image.device)
+    g_tfinal, total = rasterize_cuda.backward_residuals(image, t_final, bg, g_image, g_t)
+    return g_image, g_tfinal, total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_feat,grad_mode", [(0, "full"), (3, "full"),
+                                                (3, "feature")])
+@pytest.mark.parametrize("n,seed,w,h", [(500, 1, 77, 53), (3000, 2, 200, 129)])
+def test_backward_kernel_matches_plain(cuda_device, num_feat, grad_mode, n, seed, w, h):
+    """K2 against the plain backward on the same inputs; its replayed final T equals
+    K1's bit for bit. Tolerance: 1e-4 of each row's largest magnitude (the kernel sums
+    each instance's 256 pixels in another order than the plain version)."""
+    prep, inst, opac, feats = binned(n, seed, w, h, num_feat, cuda_device)
+    bg = torch.tensor([0.2, 0.5, 0.9], device=cuda_device)
+    args = rasterize_cuda.blend_args(prep, inst, opac, feats, bg)
+    size = dict(image_height=h, image_width=w, tile_size=16)
+    image, t_final = rasterize_cuda.blend_forward(*args, **size)
+    g_image, g_tfinal, total = residuals(image, t_final, bg, seed)
+    bwd_args = (*args[:8], inst.presort_slot, g_image, g_tfinal, total, t_final)
+    launches = _build.LAUNCHES["blend_bwd"]
+    d_pre, t_replay = rasterize_cuda.blend_backward(*bwd_args, grad_mode=grad_mode,
+                                                    return_t=True, **size)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["blend_bwd"] == launches + 1
+    assert torch.equal(t_replay, t_final)
+    ref, ref_t = rasterize_cuda.blend_backward_plain(*bwd_args, grad_mode=grad_mode,
+                                                     return_t=True, **size)
+    assert d_pre.shape == ref.shape == (rasterize_cuda.grad_rows(num_feat, grad_mode),
+                                        inst.gauss_id.shape[0])
+    assert bool(torch.isfinite(d_pre).all()) and float(ref.abs().max()) > 0
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-6)
+    assert float(((d_pre - ref).abs() / scale).max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_segsum_kernel_matches_plain(cuda_device):
+    """K3 against the plain segment sum on the CPU, with empty segments and segments
+    longer than 32. The CPU version adds each segment's columns in ascending order, as
+    the kernel does (on the card the plain version's index_add_ adds in the order its
+    atomics land). Tolerance 1e-5 absolute (sums of at most 100 values of order 1)."""
+    from langsplat_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(0, 4, 5000)
+    lengths[rng.uniform(size=5000) < 0.3] = 0
+    lengths[[7, 1234, 4999]] = [33, 100, 64]
+    ends = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    d_pre = torch.tensor(rng.normal(size=(12, int(ends[-1]) + 17)).astype(np.float32),
+                         device=cuda_device)
+    ends_t = torch.tensor(ends, device=cuda_device)
+    launches = _build.LAUNCHES["segsum"]
+    out = segment_sum(d_pre, ends_t, 5000)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["segsum"] == launches + 1
+    torch.testing.assert_close(out.cpu(), segment_sum_plain(d_pre.cpu(), ends_t.cpu(),
+                                                            5000), atol=1e-5, rtol=0)
+
+
+def field_params(n, seed, num_feat):
+    rng = np.random.default_rng(seed)
+    s = scene(n, seed, max(num_feat, 1))
+    return dict(xyz=s["means"], features_dc=rng.normal(size=(n, 1, 3)).astype(np.float32),
+                features_rest=(0.3 * rng.normal(size=(n, 15, 3))).astype(np.float32),
+                scaling=np.log(s["scales"]), rotation=s["quats"],
+                opacity=rng.normal(size=(n, 1)).astype(np.float32),
+                language_feature=s["feats"] if num_feat else None,
+                alive=np.ones(n, bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["rgb", "feature"])
+def test_train_step_on_card_matches_cpu(cuda_device, phase):
+    """One training step's loss and gradients on the card (K1, K2, K3) against the same
+    step on the CPU (plain versions). As in test_render_on_card_matches_cpu, preprocess
+    rounding may move a tile-rect edge, so a few gradient entries may differ more."""
+    from langsplat_tpu_torch.models.gaussian_field import from_numpy
+    from langsplat_tpu_torch.train import trainer
+    n, w, h = 2000, 160, 120
+    num_feat = 3 if phase == "feature" else 0
+    params = field_params(n, 6, num_feat)
+    cam = camera(w, h)
+    settings = RenderSettings(image_height=h, image_width=w, tanfovx=cam["tanfovx"],
+                              tanfovy=cam["tanfovy"], sh_degree=3, budget=64 * n,
+                              include_feature=bool(num_feat),
+                              grad_mode="feature" if num_feat else "full")
+    rng = np.random.default_rng(7)
+    gt = rng.uniform(size=(3, h, w)).astype(np.float32)
+    mask = (rng.uniform(size=(1, h, w)) < 0.8).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        field = from_numpy(params, dev)
+        mats = [torch.tensor(cam[k], device=dev) for k in ("viewmatrix", "projmatrix",
+                                                           "campos")]
+        bg = torch.zeros(3, device=dev)
+        launches = dict(_build.LAUNCHES)
+        if num_feat:
+            loss, _, grads = trainer.feature_loss_and_grads(
+                field, *mats, torch.tensor(gt, device=dev), torch.tensor(mask, device=dev),
+                bg, settings=settings)
+        else:
+            loss, _, _, grads, tap = trainer.rgb_loss_and_grads(
+                field, *mats, torch.tensor(gt, device=dev), bg, settings=settings,
+                lambda_dssim=0.2)
+            grads["tap"] = tap
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            for k in ("blend_fwd", "blend_bwd", "segsum"):
+                assert _build.LAUNCHES[k] == launches[k] + 1, k
+        outs[str(dev)] = (float(loss), {k: v.cpu() for k, v in grads.items()})
+    (loss_c, grads_c), (loss_g, grads_g) = outs["cpu"], outs["cuda"]
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
+    for k, ref in grads_c.items():
+        scale = float(ref.abs().max())
+        assert scale > 0, k
+        err = (grads_g[k] - ref).abs()
+        assert float((err > 1e-3 * scale).float().mean()) < 1e-3, k

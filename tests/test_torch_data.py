@@ -110,9 +110,17 @@ def test_field_activations_match_jax():
     bare = from_numpy(dict(params, language_feature=None), "cpu")
     with pytest.raises(ValueError):
         bare.get_language_feature
-    lf = bare.with_language_feature(3, init_scale=1e-2, seed=5).language_feature
+    def seeded():
+        return torch.Generator().manual_seed(5)
+
+    lf = bare.with_language_feature(3, init_scale=1e-2, generator=seeded()).language_feature
     assert lf.shape == (bare.capacity, 3) and 0 < float(lf.abs().max()) < 0.1
-    torch.testing.assert_close(lf, bare.with_language_feature(3, seed=5).language_feature)
+    torch.testing.assert_close(
+        lf, bare.with_language_feature(3, generator=seeded()).language_feature)
+    table = np.random.default_rng(0).normal(size=(bare.capacity, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        bare.with_language_feature(3, table=torch.tensor(table)).language_feature.numpy(),
+        table)
     assert t.with_language_feature(3) is t
 
 

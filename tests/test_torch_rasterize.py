@@ -1,4 +1,4 @@
-"""PyTorch port, tile blend: the plain version of `rasterize_forward` against the JAX
+"""PyTorch port, tile blend: the plain version of `rasterize` against the JAX
 Pallas blend (interpret mode) and the dense oracle. (The CUDA kernel is held against the
 plain version in tests/test_torch_cuda.py.)
 
@@ -72,7 +72,7 @@ def test_plain_blend_matches_pallas_and_dense(name):
                             image_height=h, image_width=w, tile_size=16)
     tprep, tinst = to_torch(prep, inst)
     launches = _build.LAUNCHES["blend_fwd"]
-    out = rasterize_cuda.rasterize_forward(
+    out = rasterize_cuda.rasterize(
         tprep, tinst, torch.tensor(opac), torch.tensor(feats) if with_feat else None,
         torch.tensor(bg, dtype=torch.float32), image_height=h, image_width=w,
         tile_size=16)
