@@ -24,13 +24,17 @@ Phases (any failure ends the run with a non-zero exit):
      the plain version's time, and the kernel's bound from this run's work;
   5. the training path: the same cameras over 1M SfM points of the bench box and
      language-feature maps (from --seed), trained by
-     `langsplat_tpu_torch.cli.train_cli.main` for 20 phase-A steps (densification and
-     an opacity reset fire) ending in a checkpoint, then 20 phase-B steps from it; the
-     launch counters are zeroed before each phase and read after it;
-  6. full-width checks on the trained fields' view-0 inputs: the backward kernel
-     against the plain backward (full mode on the phase-A field, feature mode on the
-     phase-B field), its replayed final transmittance against the forward kernel's bit
-     for bit, and the segment-sum kernel against the plain segment sum;
+     `langsplat_tpu_torch.cli.train_cli.main` for 20 phase-A steps (every Gaussian
+     clones at step 10 and the capacity grows; an opacity reset at step 15) ending in a
+     checkpoint, then 20 phase-B steps from it; the launch counters are zeroed before
+     each phase and read after it; the original Gaussians' xyz must have moved by
+     Adam's steps and the language features must have moved;
+  6. full-width checks on the trained fields' view-0 inputs: the forward kernel
+     against the plain forward (F = 0 on the phase-A field, F = 3 on the phase-B
+     field), the backward kernel against the plain backward (full mode on the phase-A
+     field, feature mode on the phase-B field), its replayed final transmittance
+     against the forward kernel's bit for bit, and the segment-sum kernel against the
+     plain segment sum on the CPU, row by row;
   7. training timings at full width: per step (host clock, median of 5 after warm-up),
      its parts with CUDA events (forward render, loss, backward, optimizer), the
      device's idle share over 3 profiled steps, and the backward and segment-sum
@@ -77,7 +81,7 @@ N_VIEWS = 3
 FOV_X = 0.9
 TOL = 2e-4            # blend forward vs plain: see tests/test_torch_cuda.py
 BWD_TOL = 1e-4        # blend backward vs plain, relative to each row's largest value
-SEG_TOL = 1e-5        # segment sum vs plain, relative to the largest sum (at least 1)
+SEG_TOL = 1e-5        # segment sum vs plain, relative to each row's largest sum
 TRAIN_STEPS = 20
 # The SfM points' 3-NN scales make ~12M instances per view at the first steps (Gaussians
 # of ~50 px radius, the tile cap grown past the culled range): past the default cap of
@@ -260,24 +264,33 @@ def compare_backward(bwd_args, t_final, grad_mode, h, w) -> tuple[float, float, 
     return float(err.max()), float((err / scale).max()), d_pre
 
 
-def compare_segsum(d_pre, ends, n) -> float:
-    """Max abs error of the segment-sum kernel against the plain version; raises when it
-    exceeds SEG_TOL times the result's largest magnitude (at least 1)."""
-    out = segsum.segment_sum_cuda(d_pre, ends, n)
-    torch.cuda.synchronize()
-    ref = segsum.segment_sum_plain(d_pre, ends, n)
-    err = float((out - ref).abs().max())
-    if not err <= SEG_TOL * max(1.0, float(ref.abs().max())):
-        raise RuntimeError(f"segsum kernel disagrees with its plain version: {err}")
-    return err
+def compare_segsum(d_pre, ends, n) -> tuple[float, float, list]:
+    """(max abs error, largest row-relative error, each row's largest sum) of the
+    segment-sum kernel against the plain version run on the CPU, which adds each
+    segment's columns in ascending order as the kernel does (on the card, index_add_
+    adds in the order its atomics land); raises when an error exceeds SEG_TOL of its
+    row's largest sum."""
+    out = segsum.segment_sum_cuda(d_pre, ends, n).cpu()
+    ref = segsum.segment_sum_plain(d_pre.cpu(), ends.cpu(), n)
+    if not torch.isfinite(out).all():
+        raise RuntimeError("segsum kernel produced non-finite values")
+    err = (out - ref).abs()
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    rel = float((err / scale.clamp_min(1e-30)).max())
+    if not rel <= SEG_TOL:
+        raise RuntimeError(f"segsum kernel disagrees with its plain version: "
+                           f"row-relative {rel}")
+    return float(err.max()), rel, [float(s) for s in scale[:, 0]]
 
 
 def small_comparisons(device) -> dict:
     """Each kernel against its plain version at small odd sizes: the blend forward and
     backward on random scenes with F = 0 and 3 (the backward in both grad modes), the
     segment sum on random segments with some longer than 32. Returns the worst errors:
-    absolute for the forward and the segment sum, row-relative for the backward."""
-    worst = dict(blend_fwd=0.0, blend_bwd=0.0, blend_bwd_abs=0.0, segsum=0.0)
+    absolute for the forward, absolute and row-relative for the backward and the
+    segment sum."""
+    worst = dict(blend_fwd=0.0, blend_bwd=0.0, blend_bwd_abs=0.0, segsum=0.0,
+                 segsum_abs=0.0)
     for n, w, h, seed in ((2000, 77, 53, 1), (20000, 333, 211, 2)):
         rng = np.random.default_rng(seed)
         g = {k: torch.tensor(v, device=device) for k, v in bench_gaussians(n, rng).items()}
@@ -314,7 +327,9 @@ def small_comparisons(device) -> dict:
                 worst["blend_bwd"] = max(worst["blend_bwd"], rel_err)
                 worst["blend_bwd_abs"] = max(worst["blend_bwd_abs"], abs_err)
                 ends = torch.clamp(inst.gauss_offsets, 0, inst.gauss_id.shape[0])
-                worst["segsum"] = max(worst["segsum"], compare_segsum(d_pre, ends, n))
+                seg_abs, seg_rel, _ = compare_segsum(d_pre, ends, n)
+                worst["segsum"] = max(worst["segsum"], seg_rel)
+                worst["segsum_abs"] = max(worst["segsum_abs"], seg_abs)
     # segments longer than 32 (the tile cap grows up to the whole grid)
     rng = np.random.default_rng(3)
     lengths = rng.integers(0, 4, 20000)
@@ -322,10 +337,12 @@ def small_comparisons(device) -> dict:
     ends = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int32,
                         device=device)
     d_pre = torch.randn((12, int(ends[-1]) + 5), device=device)
-    err = compare_segsum(d_pre, ends, 20000)
-    log(f"  segsum vs plain, 20000 segments (50 of 33-399): max_abs_err {err:.3e} "
-        f"(tol {SEG_TOL:.0e} of the largest sum, at least 1)")
-    worst["segsum"] = max(worst["segsum"], err)
+    seg_abs, seg_rel, _ = compare_segsum(d_pre, ends, 20000)
+    log(f"  segsum vs plain, 20000 segments (50 of 33-399): max_abs_err {seg_abs:.3e}, "
+        f"row-relative {seg_rel:.3e} (tol {SEG_TOL:.0e}); and on the backward's d_pre "
+        f"above: row-relative {worst['segsum']:.3e}")
+    worst["segsum"] = max(worst["segsum"], seg_rel)
+    worst["segsum_abs"] = max(worst["segsum_abs"], seg_abs)
     return worst
 
 
@@ -472,14 +489,15 @@ def library_segment_sum_ms(d_pre, ends, n):
 # ---------------------------------------------------------------------------
 
 def phase_a_flags(scene_dir, model_dir):
-    """20 phase-A steps; densification fires at step 10 (its threshold so low that
-    every Gaussian seen clones or splits, and the capacity grows) and the opacity reset
-    at 15."""
+    """20 phase-A steps; densification fires at step 10 and the opacity reset at 15.
+    The densification threshold is 0 and every scale counts as small, so every alive
+    Gaussian clones: the N_FULL originals keep their slots, their clones fill the
+    N_FULL / 2 free slots, the other half overflow, and the capacity grows by 1.5x."""
     return ["-s", scene_dir, "-m", model_dir, "--no_include_feature", "--quiet",
             "--iterations", str(TRAIN_STEPS), "--sh_degree", "3", *BUDGET_FLAGS,
             "--densify_from_iter", "5", "--densification_interval", "10",
             "--densify_until_iter", "18", "--opacity_reset_interval", "15",
-            "--densify_grad_threshold", "1e-6",
+            "--densify_grad_threshold", "0", "--percent_dense", "1000",
             "--test_iterations", "999999", "--save_iterations", str(TRAIN_STEPS),
             "--checkpoint_iterations", str(TRAIN_STEPS)]
 
@@ -575,9 +593,10 @@ def median_step_ms(fn, reps: int = 5) -> tuple[float, list]:
 
 
 def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
-    """Phases 6 and 7 for one trained field: the backward and segment-sum kernels
-    against their plain versions on the field's view-0 inputs (replayed T bit-equal to
-    the forward's), then the step timings and the kernels' times and bounds."""
+    """Phases 6 and 7 for one trained field: the forward, backward and segment-sum
+    kernels against their plain versions on the field's view-0 inputs (replayed T
+    bit-equal to the forward's), then the step timings and the kernels' times and
+    bounds."""
     field = result["field"]
     feature = phase == "B"
     mode = "feature" if feature else "full"
@@ -599,6 +618,13 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
                                                       sh_degree=0, budget=budget)
     budget = settings.budget
     num_instances = int(inst.num_instances)
+    with torch.no_grad():
+        fwd_err = compare(bargs, HEIGHT, WIDTH)
+    log(f"phase 6 ({phase}): blend_fwd (F={3 if feature else 0}) vs plain on view 0 at "
+        f"full width, {num_instances} instances: max_abs_err {fwd_err:.3e} "
+        f"(tol {TOL:.0e})")
+    if not fwd_err <= TOL:
+        raise RuntimeError(f"blend_fwd disagrees with its plain version: {fwd_err}")
     bwd_args, t_final = backward_inputs(bargs, inst, HEIGHT, WIDTH, target,
                                         mask if feature else None)
     abs_err, rel_err, d_pre = compare_backward(bwd_args, t_final, mode, HEIGHT, WIDTH)
@@ -609,9 +635,10 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
         raise RuntimeError(f"blend_bwd disagrees with its plain version: {rel_err}")
     n = field.capacity
     ends = torch.clamp(inst.gauss_offsets, 0, inst.gauss_id.shape[0]).contiguous()
-    seg_err = compare_segsum(d_pre, ends, n)
-    log(f"phase 6 ({phase}): segsum vs plain on the same d_pre: max_abs_err "
-        f"{seg_err:.3e}")
+    seg_err, seg_rel, seg_scale = compare_segsum(d_pre, ends, n)
+    log(f"phase 6 ({phase}): segsum vs plain (CPU) on the same d_pre: max_abs_err "
+        f"{seg_err:.3e}, row-relative {seg_rel:.3e} (tol {SEG_TOL:.0e}); each row's "
+        f"largest sum " + ", ".join(f"{s:.2e}" for s in seg_scale))
 
     # 7. timings
     bwd_kw = dict(grad_mode=mode, **size)
@@ -643,7 +670,9 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
     timing.update(segsum_bound_ms=sbound, segsum_bound_by=sbound_by, segsum_work=swork)
     log(f"phase 7 ({phase}): " + json.dumps(timing))
     log(f"phase 7 ({phase}) profile over 3 steps: " + json.dumps(profile_render(step)))
-    return dict(timing, blend_bwd_err=abs_err, blend_bwd_rel=rel_err, segsum_err=seg_err)
+    return dict(timing, errors=dict(blend_fwd=fwd_err, blend_bwd=abs_err,
+                                    blend_bwd_rel=rel_err, segsum=seg_err,
+                                    segsum_rel=seg_rel))
 
 
 # ---------------------------------------------------------------------------
@@ -674,7 +703,8 @@ def main() -> int:
     log(f"phase 2: built {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s")
     small = small_comparisons(device)
     errors = dict(blend_fwd=small["blend_fwd"], blend_bwd=small["blend_bwd_abs"],
-                  segsum=small["segsum"])
+                  blend_bwd_rel=small["blend_bwd"], segsum=small["segsum_abs"],
+                  segsum_rel=small["segsum"])
     if not (small["blend_fwd"] <= TOL and small["blend_bwd"] <= BWD_TOL):
         raise RuntimeError(f"a kernel disagrees with its plain version: {small}")
 
@@ -790,8 +820,22 @@ def main() -> int:
         train_logs = {}
         result_a = run_training_phase("A", phase_a_flags(train_scene, run_prefix),
                                       train_logs)
-        initial = torch.as_tensor(points, dtype=torch.float32, device=device)
-        moved_a = float((result_a["field"].xyz[:len(points)] - initial).abs().max())
+        # densification grew the capacity and left the originals in their slots, so
+        # their moves are Adam's alone: at most ~5 lr a step (lr <= position_lr_init
+        # times the scene extent)
+        field_a = result_a["field"]
+        start_capacity = int(N_FULL * OptimizationConfig().initial_capacity_factor)
+        log(f"phase 5 (A): capacity {start_capacity} -> {field_a.capacity}, "
+            f"{field_a.num_alive} alive")
+        if not (field_a.capacity > start_capacity and field_a.num_alive > N_FULL
+                and bool(field_a.alive[:N_FULL].all())):
+            raise RuntimeError("densification did not clone into a grown capacity")
+        step_a = (field_a.xyz[:N_FULL]
+                  - torch.as_tensor(points, dtype=torch.float32, device=device)).abs()
+        moved_a = float(step_a.max())
+        moved_share = float((step_a.amax(dim=1) > 0).float().mean())
+        xyz_limit = (5 * TRAIN_STEPS * OptimizationConfig().position_lr_init
+                     * result_a["scene"].cameras_extent)
         checkpoint = os.path.join(run_prefix + "_-1", f"chkpnt{TRAIN_STEPS}.npz")
         result_b = run_training_phase(
             "B", ["-s", train_scene, "-m", run_prefix, "--quiet", "--feature_level", "1",
@@ -802,10 +846,11 @@ def main() -> int:
         init_lf = 1e-2 * torch.randn((result_b["field"].capacity, 3),
                                      generator=torch.Generator().manual_seed(0))
         moved_b = float((result_b["field"].language_feature.cpu() - init_lf).abs().max())
-        log(f"phase 5: parameters moved: xyz by up to {moved_a:.3e} (phase A), language "
-            f"features by up to {moved_b:.3e} (phase B)")
-        if not (moved_a > 0 and moved_b > 0):
-            raise RuntimeError("training did not move the parameters")
+        log(f"phase 5: parameters moved: xyz of {moved_share:.3f} of the original "
+            f"Gaussians by up to {moved_a:.3e} (limit {xyz_limit:.3e}; phase A), "
+            f"language features by up to {moved_b:.3e} (phase B)")
+        if not (0 < moved_a <= xyz_limit and moved_share > 0.1 and moved_b > 0):
+            raise RuntimeError("training did not move the parameters as Adam would")
         if not os.path.exists(os.path.join(run_prefix + "_1", f"chkpnt{TRAIN_STEPS}.npz")):
             raise RuntimeError("phase B wrote no checkpoint")
 
@@ -823,13 +868,18 @@ def main() -> int:
             "B", result_b, train_cam, pipe, device, torch.as_tensor(gt_feat).to(device),
             torch.as_tensor(gt_mask).to(device))
     for ph in ("A", "B"):
-        errors["blend_bwd"] = max(errors["blend_bwd"], train_timings[ph]["blend_bwd_err"])
-        errors["segsum"] = max(errors["segsum"], train_timings[ph]["segsum_err"])
+        for key, err in train_timings[ph]["errors"].items():
+            errors[key] = max(errors[key], err)
+    if not (errors["blend_fwd"] <= TOL and errors["blend_bwd_rel"] <= BWD_TOL
+            and errors["segsum_rel"] <= SEG_TOL):
+        raise RuntimeError(f"a kernel disagrees with its plain version: {errors}")
 
     feat = timings["features"]
     ta = train_timings["A"]
     launches = {k: train_logs["A"]["launches"][k] + train_logs["B"]["launches"][k]
                 for k in ("blend_bwd", "segsum")}
+    # `max_abs_err` is absolute for every kernel; each is held to `tol` of the kind
+    # `tol_of` names, against `max_rel_err` where that is row-relative
     kernels = [
         dict(name="blend_fwd", route="cuda", source="langsplat_tpu_torch/csrc/blend_fwd.cu",
              replaces="langsplat_tpu/ops/rasterize_pallas.py:597",
@@ -837,19 +887,21 @@ def main() -> int:
                  "blend_fwd"] + train_logs["B"]["launches"]["blend_fwd"],
              max_abs_err=errors["blend_fwd"],
              ms=feat["blend_ms"], plain_ms=feat["plain_ms"], bound_ms=feat["bound_ms"],
-             bound_by=feat["bound_by"], library_ms=None),
+             bound_by=feat["bound_by"], library_ms=None, tol=TOL, tol_of="absolute"),
         dict(name="blend_bwd", route="cuda", source="langsplat_tpu_torch/csrc/blend_bwd.cu",
              replaces="langsplat_tpu/ops/rasterize_pallas.py:746",
              launches=launches["blend_bwd"], max_abs_err=errors["blend_bwd"],
              ms=ta["blend_bwd_ms"], plain_ms=ta["blend_bwd_plain_ms"],
              bound_ms=ta["blend_bwd_bound_ms"], bound_by=ta["blend_bwd_bound_by"],
-             library_ms=None),
+             library_ms=None, max_rel_err=errors["blend_bwd_rel"], tol=BWD_TOL,
+             tol_of="row-relative"),
         dict(name="segsum", route="cuda", source="langsplat_tpu_torch/csrc/segsum.cu",
              replaces="langsplat_tpu/ops/segsum_pallas.py:42",
              launches=launches["segsum"], max_abs_err=errors["segsum"],
              ms=ta["segsum_ms"], plain_ms=ta["segsum_plain_ms"],
              bound_ms=ta["segsum_bound_ms"], bound_by=ta["segsum_bound_by"],
-             library_ms=ta["segsum_library_ms"]),
+             library_ms=ta["segsum_library_ms"], max_rel_err=errors["segsum_rel"],
+             tol=SEG_TOL, tol_of="row-relative"),
     ]
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))

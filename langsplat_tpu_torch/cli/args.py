@@ -3,9 +3,9 @@
 PyTorch-port counterpart of `langsplat_tpu/cli/args.py`, with the same flags: the 3DGS
 model flags (--source_path/-s, --model_path/-m, --images/-i, --resolution/-r,
 --white_background/-w, --feature_level/-f), the rasterizer's pipeline flags and the
-optimization flags. --chunk and --interpret select the JAX package's Pallas chunk and
-CPU backend; the port accepts them so that a JAX command line runs unchanged, and has
-no use for them.
+optimization flags. The JAX package's flags that the port has no counterpart for yet
+(--interpret, --chunk, the multi-device flags) are accepted and refused with an error
+that names them, rather than ignored.
 """
 
 from __future__ import annotations
@@ -36,18 +36,18 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--budget_factor", type=int, default=6)
     p.add_argument("--allow_budget_truncation", action="store_true")
     p.add_argument("--debug", action="store_true")
-    p.add_argument("--chunk", type=int, default=128,
-                   help="the JAX package's Pallas chunk; no effect in the port")
+    p.add_argument("--chunk", type=int, default=None,
+                   help="the JAX package's Pallas chunk: refused (the port's kernels "
+                        "take none)")
     p.add_argument("--interpret", action="store_true",
-                   help="the JAX package's CPU backend; no effect in the port (use "
-                        "--device cpu)")
+                   help="the JAX package's CPU backend: refused (use --device cpu)")
     for name in ("depth_shards", "data_shards", "gauss_shards"):
         p.add_argument(f"--{name}", type=int, default=0,
                        help="multi-device training: not in the port yet (refused)")
     p.add_argument("--zero2", action="store_true",
                    help="multi-device training: not in the port yet (refused)")
     p.add_argument("--dp_views_per_device", type=int, default=1,
-                   help="multi-device training: not in the port yet (no effect)")
+                   help="multi-device training: not in the port yet (refused above 1)")
 
 
 def add_optimization_args(p: argparse.ArgumentParser) -> None:
@@ -66,7 +66,25 @@ def add_optimization_args(p: argparse.ArgumentParser) -> None:
         p.add_argument(f"--{name}", type=type(getattr(d, name)), default=getattr(d, name))
 
 
+def refuse_unported(args) -> None:
+    """Raise for the flags of the JAX package that the port cannot honour yet."""
+    asked = []
+    if args.interpret:
+        asked.append("--interpret (the JAX package's CPU backend; use --device cpu)")
+    if args.chunk is not None:
+        asked.append(f"--chunk {args.chunk} (the JAX package's Pallas chunk)")
+    if args.dp_views_per_device != 1:
+        asked.append(f"--dp_views_per_device {args.dp_views_per_device}")
+    for name in ("profile_from", "profile_steps"):
+        if getattr(args, name, None) is not None:
+            asked.append(f"--{name} {getattr(args, name)} (the profiler trace window)")
+    if asked:
+        raise NotImplementedError("options of the JAX package not ported yet: "
+                                  + ", ".join(asked))
+
+
 def extract_configs(args) -> TrainConfig:
+    refuse_unported(args)
     model = ModelConfig(
         sh_degree=args.sh_degree, source_path=args.source_path,
         model_path=args.model_path,

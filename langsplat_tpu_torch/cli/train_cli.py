@@ -38,8 +38,10 @@ def main(argv=None) -> dict:
                         help="viewer bridge port (0 = disabled; not in the port yet)")
     parser.add_argument("--profile_dir", type=str, default="",
                         help="profiler trace directory (not in the port yet)")
-    parser.add_argument("--profile_from", type=int, default=50)
-    parser.add_argument("--profile_steps", type=int, default=5)
+    parser.add_argument("--profile_from", type=int, default=None,
+                        help="profiler trace window (not in the port yet: refused)")
+    parser.add_argument("--profile_steps", type=int, default=None,
+                        help="profiler trace window (not in the port yet: refused)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to train on (default: the CUDA card; 'cpu' "
                              "runs the plain PyTorch blend)")
@@ -58,8 +60,7 @@ def main(argv=None) -> dict:
                   save_iterations=tuple(args.save_iterations),
                   checkpoint_iterations=tuple(args.checkpoint_iterations),
                   start_checkpoint=args.start_checkpoint, seed=args.seed,
-                  quiet=args.quiet, profile_dir=args.profile_dir,
-                  profile_from=args.profile_from, profile_steps=args.profile_steps)
+                  quiet=args.quiet, profile_dir=args.profile_dir)
     result = training(cfg, device=device, gui_host=args.ip, gui_port=args.port)
     print("\nTraining complete.")
     return result

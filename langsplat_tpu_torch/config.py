@@ -2,8 +2,8 @@
 
 PyTorch-port counterpart of `langsplat_tpu/config.py`: the same parameter names and
 defaults, so a run config (`cfg_args.json`) written by either package loads in the
-other. Keys this package has no use for (Pallas chunking, interpret mode) are not
-fields here and are ignored when a file holds them. The multi-device options are
+other. Keys this package has no use for (Pallas chunking, interpret mode, the
+profiler window) are not fields here and are ignored when a file holds them. The multi-device options are
 fields, so that the training loop can refuse them until the port has a parallel path.
 """
 
@@ -94,10 +94,8 @@ class TrainConfig:
     start_checkpoint: str = ""
     seed: int = 0
     quiet: bool = False
-    # profiler trace window of the JAX package; the port refuses it for now
+    # profiler trace directory of the JAX package; the port refuses it for now
     profile_dir: str = ""
-    profile_from: int = 50
-    profile_steps: int = 5
 
 
 _SECTIONS = {"model": ModelConfig, "pipeline": PipelineConfig,

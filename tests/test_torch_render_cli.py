@@ -107,6 +107,16 @@ def test_render_cli_needs_a_card_unless_asked(model, tmp_path, monkeypatch):
         torch_render_main(["-m", str(model_dir), "-s", scene, "--skip_test"])
 
 
+@pytest.mark.parametrize("flags", [["--interpret"], ["--chunk", "128"]])
+def test_render_cli_refuses_jax_only_flags(model, flags):
+    """A JAX command line that asks for the CPU backend or a Pallas chunk fails with
+    a message naming the flag, rather than running as something else."""
+    scene, model_dir, _ = model
+    with pytest.raises(NotImplementedError, match=flags[0]):
+        torch_render_main(["-m", str(model_dir), "-s", scene, "--skip_test",
+                           "--device", "cpu", *flags])
+
+
 def test_ply_is_byte_equal_to_jax_writer(model, tmp_path):
     _, model_dir, params = model
     path = str(tmp_path / "port.ply")

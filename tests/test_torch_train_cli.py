@@ -164,7 +164,9 @@ def test_train_cli_needs_a_card_unless_asked(scene, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--data_shards", "4"], ["--depth_shards", "2"],
                                    ["--gauss_shards", "2"], ["--port", "6009"],
-                                   ["--profile_dir", "trace"]])
+                                   ["--profile_dir", "trace"], ["--interpret"],
+                                   ["--chunk", "128"], ["--dp_views_per_device", "2"],
+                                   ["--profile_from", "10"], ["--profile_steps", "3"]])
 def test_unported_options_are_refused(scene, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         torch_train_main(["-s", scene, "-m", str(tmp_path / "run"), "--device", "cpu",
