@@ -89,11 +89,13 @@ class FeaturePrefetcher:
             fut = self._pool.submit(self._load, cam)
             self._pending[key] = fut
 
-            def _done(_fut, key=key):
-                with self._lock:
-                    self._pending.pop(key, None)
+        def _done(_fut, key=key):
+            with self._lock:
+                self._pending.pop(key, None)
 
-            fut.add_done_callback(_done)
+        # outside the lock: a load that has already finished runs `_done` right here,
+        # in this thread, and `_done` takes the lock
+        fut.add_done_callback(_done)
 
     def get(self, cam):
         key = cam.image_name

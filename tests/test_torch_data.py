@@ -144,3 +144,38 @@ def test_budget_and_tmax_policies_match_jax():
         if not grew:
             break
     assert tt.tmax == tt.grid_cap == jt.grid_cap
+
+
+def test_prefetcher_schedule_survives_a_load_that_already_finished():
+    """`schedule` must return when the load's future is already done as it registers
+    its callback (the callback then runs in the calling thread and takes the lock)."""
+    import threading
+    from concurrent.futures import Future
+    from langsplat_tpu_torch.data.prefetch import FeaturePrefetcher
+
+    class Cam:
+        image_name = "view"
+
+        def get_language_feature(self, path, level):
+            return np.full((3, 4, 5), level, np.float32), np.ones((1, 4, 5), np.float32)
+
+    class FinishedOnSubmit:
+        def submit(self, fn, *args):
+            fut = Future()
+            fut.set_result(fn(*args))
+            return fut
+
+        def shutdown(self, **kwargs):
+            pass
+
+    pf = FeaturePrefetcher("unused", 2, device=torch.device("cpu"))
+    pf._pool.shutdown()
+    pf._pool = FinishedOnSubmit()
+    worker = threading.Thread(target=pf.schedule, args=(Cam(),), daemon=True)
+    worker.start()
+    worker.join(timeout=10)
+    assert not worker.is_alive()
+    feat, mask = pf.get(Cam())
+    assert feat.shape == (3, 4, 5) and float(feat[0, 0, 0]) == 2.0
+    assert mask.shape == (1, 4, 5) and not pf._pending
+    pf.close()
