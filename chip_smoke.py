@@ -33,12 +33,17 @@ Phases (any failure ends the run with a non-zero exit):
      against the plain forward (F = 0 on the phase-A field, F = 3 on the phase-B
      field), the backward kernel against the plain backward (full mode on the phase-A
      field, feature mode on the phase-B field), its replayed final transmittance
-     against the forward kernel's bit for bit, and the segment-sum kernel against the
-     plain segment sum on the CPU, row by row;
+     against the forward kernel's bit for bit, its d_pre over two launches bit for
+     bit, and the segment-sum kernel against the plain segment sum on the CPU, row by
+     row, and over two launches bit for bit; the share of (instance, warp-region) pairs
+     the backward kernel's cull keeps, counted with its plain mirror, which must keep
+     every region the plain forward blends in;
   7. training timings at full width: per step (host clock, median of 5 after warm-up),
      its parts with CUDA events (forward render, loss, backward, optimizer), the
-     device's idle share over 3 profiled steps, and the backward and segment-sum
-     kernels' times, plain times, bounds, and the library segment sum as a yardstick.
+     device's idle share over 3 profiled steps, and the forward, backward and
+     segment-sum kernels' times, plain times, bounds (each blend bound counts the
+     blended pairs alone, with the count over every evaluated pair beside it), and the
+     library segment sum as a yardstick.
 The line before the last is the `kernels` JSON; the last line is the result JSON.
 It needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -399,27 +404,37 @@ def profile_render(fn, reps: int = 3) -> dict:
                 top_kernels_ms_per_call=[(k[:60], t / reps / 1e3) for k, t in kernels[:8]])
 
 
-def blend_bound(args, h, w, num_instances: int) -> tuple[float, str, dict]:
-    """Least time for the blend on this card: the larger of bytes over HBM rate and
-    FP32 operations over the FP32 peak. Bytes: every input read once (per-Gaussian
-    arrays, the instances the tiles list, tile ranges, bg) and both outputs written
-    once. Operations: from the (instance, pixel) pairs these inputs need, counted by
-    the plain version: 11 per evaluated pair (offsets and the conic power) and
-    6 + 2C more per blended pair (alpha, transmittance, weight, C accumulations)."""
+def bounds(nbytes: int, ops: int, ops_evaluated: int) -> tuple[float, str, dict]:
+    """(bound ms, what sets it, work): the larger of bytes over the HBM rate and FP32
+    operations over the FP32 peak, the operations being those of the blended pairs alone
+    (what the function needs: a kernel that culls exactly evaluates no other pair); beside
+    it, as `bound_evaluated_ms`, the same with the falloff of every evaluated pair, which
+    a kernel without a cull does."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    work = dict(bytes=nbytes, fp32_ops=ops, fp32_ops_evaluated=ops_evaluated,
+                bound_evaluated_ms=max(t_bytes, ops_evaluated / FP32_OPS_PER_S * 1e3))
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), work
+
+
+def blend_bound(args, h, w, num_instances: int, pairs) -> tuple[float, str, dict]:
+    """Least time for the blend on this card (`bounds`). Bytes: every input read once
+    (per-Gaussian arrays, the instances the tiles list, tile ranges, bg) and both outputs
+    written once. Operations: from the (evaluated, blended) (instance, pixel) pairs these
+    inputs need, counted by the plain version: 11 per blended pair (offsets and the
+    conic power) and 6 + 2C more (alpha, transmittance, weight, C accumulations); the
+    evaluated count adds the 11 of every evaluated pair that does not blend."""
     means2d, conics, opac, visible, colors, feats, gauss_id, tile_start, bg = args
     c = 3 + (0 if feats is None else feats.shape[1])
     n = means2d.shape[0]
     in_bytes = (n * 4 * (2 + 3 + 1 + 3 + (c - 3)) + n + 4 * num_instances
                 + 4 * tile_start.numel() + 4 * 3)
     out_bytes = 4 * (c + 1) * h * w
-    evaluated, blended = rasterize_cuda.evaluated_pairs(
-        *args, image_height=h, image_width=w, tile_size=TILE)
-    ops = 11 * evaluated + (6 + 2 * c) * blended
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    work = dict(bytes=in_bytes + out_bytes, evaluated_pairs=evaluated,
-                blended_pairs=blended, fp32_ops=ops)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), work
+    evaluated, blended = pairs
+    bound, bound_by, work = bounds(in_bytes + out_bytes,
+                                   (11 + 6 + 2 * c) * blended,
+                                   11 * evaluated + (6 + 2 * c) * blended)
+    return bound, bound_by, dict(work, evaluated_pairs=evaluated, blended_pairs=blended)
 
 
 def backward_bound(bwd_args, grad_mode, h, w, num_instances: int, pairs,
@@ -428,10 +443,11 @@ def backward_bound(bwd_args, grad_mode, h, w, num_instances: int, pairs,
     Bytes: the forward's per-Gaussian inputs, the instances the tiles list and their
     pre-sort slots, tile ranges, the per-pixel gradients and residuals (C + 3 floats a
     pixel) read once, and d_pre [R, budget] written once. Operations, from the forward's
-    (evaluated, blended) pairs on the same inputs: 11 per evaluated pair (the falloff),
-    and per blended pair 30 + 3C (alpha, T, weight, gdot, the suffix, dalpha and its
-    chain to the six geometric gradients, the C attribute gradients) plus one add per
-    output row into the instance's sum; in feature mode 6 + 2F per blended pair."""
+    (evaluated, blended) pairs on the same inputs, per blended pair: 11 (the falloff),
+    30 + 3C (alpha, T, weight, gdot, the suffix, dalpha and its chain to the six
+    geometric gradients, the C attribute gradients) and one add per output row into the
+    instance's sum; in feature mode 11 + 6 + 2F. The evaluated count adds the 11 of
+    every evaluated pair that does not blend."""
     means2d, _, _, _, _, feats, _, tile_start = bwd_args[:8]
     num_feat = 0 if feats is None else feats.shape[1]
     c = 3 + num_feat
@@ -443,12 +459,34 @@ def backward_bound(bwd_args, grad_mode, h, w, num_instances: int, pairs,
     out_bytes = 4 * rows * budget
     evaluated, blended = pairs
     per_blended = (30 + 3 * c + rows) if grad_mode == "full" else (6 + 2 * num_feat)
-    ops = 11 * evaluated + per_blended * blended
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    work = dict(bytes=in_bytes + out_bytes, evaluated_pairs=evaluated,
-                blended_pairs=blended, fp32_ops=ops)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), work
+    bound, bound_by, work = bounds(in_bytes + out_bytes,
+                                   (11 + per_blended) * blended,
+                                   11 * evaluated + per_blended * blended)
+    return bound, bound_by, dict(work, evaluated_pairs=evaluated, blended_pairs=blended)
+
+
+def cull_shares(bargs, inst, blended_in, chunk: int = 1 << 21) -> dict:
+    """The share of (instance, warp-region) pairs that the backward kernel's cull keeps,
+    counted with its plain mirror on these inputs, beside the share that the plain
+    forward blends; raises if the cull would skip a region an instance blends in."""
+    means2d, conics, opac, visible = bargs[:4]
+    num = int(inst.num_instances)
+    kept = blended = missed = 0
+    for lo in range(0, num, chunk):
+        hi = min(num, lo + chunk)
+        keep = rasterize_cuda.warp_region_keep(
+            means2d, conics, opac, visible, inst.gauss_id[lo:hi], inst.tile_id[lo:hi],
+            grid_x=-(-WIDTH // TILE))
+        hit = blended_in[lo:hi]
+        kept += int(keep.sum())
+        blended += int(hit.sum())
+        missed += int((hit & ~keep).sum())
+    if missed:
+        raise RuntimeError(f"the backward kernel's cull skips {missed} (instance, "
+                           f"region) pairs that blend")
+    regions = blended_in.shape[1]
+    return dict(cull_kept_share=kept / max(num * regions, 1),
+                blended_region_share=blended / max(num * regions, 1))
 
 
 def segsum_bound(d_pre, ends, n) -> tuple[float, str, dict]:
@@ -633,16 +671,29 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
         f"{rel_err:.3e} (tol {BWD_TOL:.0e}); replayed T equals the forward's bit for bit")
     if not rel_err <= BWD_TOL:
         raise RuntimeError(f"blend_bwd disagrees with its plain version: {rel_err}")
+    bwd_kw = dict(grad_mode=mode, **size)
+    again = rasterize_cuda.blend_backward_cuda(*bwd_args, **bwd_kw)
+    if not torch.equal(again, d_pre):
+        raise RuntimeError("blend_bwd gave different d_pre in two launches")
     n = field.capacity
     ends = torch.clamp(inst.gauss_offsets, 0, inst.gauss_id.shape[0]).contiguous()
     seg_err, seg_rel, seg_scale = compare_segsum(d_pre, ends, n)
-    log(f"phase 6 ({phase}): segsum vs plain (CPU) on the same d_pre: max_abs_err "
-        f"{seg_err:.3e}, row-relative {seg_rel:.3e} (tol {SEG_TOL:.0e}); each row's "
+    if not torch.equal(segsum.segment_sum_cuda(d_pre, ends, n),
+                       segsum.segment_sum_cuda(d_pre, ends, n)):
+        raise RuntimeError("segsum gave different sums in two launches")
+    log(f"phase 6 ({phase}): blend_bwd launched twice: d_pre bit-equal; segsum vs plain "
+        f"(CPU) on the same d_pre: max_abs_err {seg_err:.3e}, row-relative "
+        f"{seg_rel:.3e} (tol {SEG_TOL:.0e}), bit-equal over two launches; each row's "
         f"largest sum " + ", ".join(f"{s:.2e}" for s in seg_scale))
+    evaluated, blended, blended_in = rasterize_cuda.blend_pairs(*bargs, **size)
+    pairs = (evaluated, blended)
+    shares = cull_shares(bargs, inst, blended_in)
+    del blended_in
+    log(f"phase 6 ({phase}): the backward's cull keeps {shares['cull_kept_share']:.4f} of "
+        f"the (instance, warp-region) pairs; the plain forward blends in "
+        f"{shares['blended_region_share']:.4f}; none it blends in is skipped")
 
     # 7. timings
-    bwd_kw = dict(grad_mode=mode, **size)
-    pairs = rasterize_cuda.evaluated_pairs(*bargs, **size)
     gt = target
     step = train_step_fn(field, opt_state, stats, cam, settings, optimizer, phase, gt,
                          mask, torch.zeros(3, device=device))
@@ -665,7 +716,10 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
     bound, bound_by, work = backward_bound(bwd_args, mode, HEIGHT, WIDTH, num_instances,
                                            pairs)
     timing.update(blend_bwd_bound_ms=bound, blend_bwd_bound_by=bound_by,
-                  blend_bwd_work=work)
+                  blend_bwd_work=work, **shares)
+    fbound, fbound_by, fwork = blend_bound(bargs, HEIGHT, WIDTH, num_instances, pairs)
+    timing.update(blend_fwd_bound_ms=fbound, blend_fwd_bound_by=fbound_by,
+                  blend_fwd_work=fwork)
     sbound, sbound_by, swork = segsum_bound(d_pre, ends, n)
     timing.update(segsum_bound_ms=sbound, segsum_bound_by=sbound_by, segsum_work=swork)
     log(f"phase 7 ({phase}): " + json.dumps(timing))
@@ -785,8 +839,10 @@ def main() -> int:
                         *bargs, **size), reps=20),
                     plain_ms=cuda_ms(lambda: rasterize_cuda.blend_forward_plain(
                         *bargs, **size), reps=1))
+                evaluated, blended, _ = rasterize_cuda.blend_pairs(*bargs, **size)
                 bound, bound_by, work = blend_bound(bargs, HEIGHT, WIDTH,
-                                                    int(inst.num_instances))
+                                                    int(inst.num_instances),
+                                                    (evaluated, blended))
                 timings[mode].update(bound_ms=bound, bound_by=bound_by, **work)
                 # the backward on this opaque trained field (pixels end early), for
                 # comparison with the training runs' fields
@@ -875,11 +931,12 @@ def main() -> int:
         raise RuntimeError(f"a kernel disagrees with its plain version: {errors}")
 
     feat = timings["features"]
-    ta = train_timings["A"]
+    ta, tb = train_timings["A"], train_timings["B"]
     launches = {k: train_logs["A"]["launches"][k] + train_logs["B"]["launches"][k]
                 for k in ("blend_bwd", "segsum")}
     # `max_abs_err` is absolute for every kernel; each is held to `tol` of the kind
-    # `tol_of` names, against `max_rel_err` where that is row-relative
+    # `tol_of` names, against `max_rel_err` where that is row-relative; the numbers
+    # after `tol_of` are the same kernel on the training path's view 0 (phase A, B)
     kernels = [
         dict(name="blend_fwd", route="cuda", source="langsplat_tpu_torch/csrc/blend_fwd.cu",
              replaces="langsplat_tpu/ops/rasterize_pallas.py:597",
@@ -887,21 +944,34 @@ def main() -> int:
                  "blend_fwd"] + train_logs["B"]["launches"]["blend_fwd"],
              max_abs_err=errors["blend_fwd"],
              ms=feat["blend_ms"], plain_ms=feat["plain_ms"], bound_ms=feat["bound_ms"],
-             bound_by=feat["bound_by"], library_ms=None, tol=TOL, tol_of="absolute"),
+             bound_by=feat["bound_by"], library_ms=None, tol=TOL, tol_of="absolute",
+             bound_counts="blended pairs",
+             bound_evaluated_ms=feat["bound_evaluated_ms"],
+             train_ms=[ta["blend_fwd_ms"], tb["blend_fwd_ms"]],
+             train_bound_ms=[ta["blend_fwd_bound_ms"], tb["blend_fwd_bound_ms"]],
+             train_bound_evaluated_ms=[t["blend_fwd_work"]["bound_evaluated_ms"]
+                                       for t in (ta, tb)]),
         dict(name="blend_bwd", route="cuda", source="langsplat_tpu_torch/csrc/blend_bwd.cu",
              replaces="langsplat_tpu/ops/rasterize_pallas.py:746",
              launches=launches["blend_bwd"], max_abs_err=errors["blend_bwd"],
              ms=ta["blend_bwd_ms"], plain_ms=ta["blend_bwd_plain_ms"],
              bound_ms=ta["blend_bwd_bound_ms"], bound_by=ta["blend_bwd_bound_by"],
              library_ms=None, max_rel_err=errors["blend_bwd_rel"], tol=BWD_TOL,
-             tol_of="row-relative"),
+             tol_of="row-relative", bound_counts="blended pairs",
+             bound_evaluated_ms=ta["blend_bwd_work"]["bound_evaluated_ms"],
+             feature_ms=tb["blend_bwd_ms"], feature_bound_ms=tb["blend_bwd_bound_ms"],
+             feature_bound_by=tb["blend_bwd_bound_by"],
+             feature_bound_evaluated_ms=tb["blend_bwd_work"]["bound_evaluated_ms"],
+             cull_kept_share=[ta["cull_kept_share"], tb["cull_kept_share"]]),
         dict(name="segsum", route="cuda", source="langsplat_tpu_torch/csrc/segsum.cu",
              replaces="langsplat_tpu/ops/segsum_pallas.py:42",
              launches=launches["segsum"], max_abs_err=errors["segsum"],
              ms=ta["segsum_ms"], plain_ms=ta["segsum_plain_ms"],
              bound_ms=ta["segsum_bound_ms"], bound_by=ta["segsum_bound_by"],
              library_ms=ta["segsum_library_ms"], max_rel_err=errors["segsum_rel"],
-             tol=SEG_TOL, tol_of="row-relative"),
+             tol=SEG_TOL, tol_of="row-relative", feature_ms=tb["segsum_ms"],
+             feature_bound_ms=tb["segsum_bound_ms"],
+             feature_library_ms=tb["segsum_library_ms"]),
     ]
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))

@@ -93,14 +93,25 @@ def _instance_alpha(means2d, conics, opa, gid, fx, fy):
     return dx, dy, power, gexp, raw, torch.clamp_max(raw, ALPHA_MAX)
 
 
-def _blend_plain(means2d, conics, opacities, visible, colors, features, gauss_id,
-                 tile_start, bg, *, image_height, image_width, tile_size):
-    """The kernel's arithmetic in plain PyTorch, all tiles at once, one instance depth
-    step at a time (memory stays O(image) whatever the instance count).
+def _regions_hit(hit, tile_size):
+    """[NT, P] per-pixel flags (P row-major over a tile) -> [NT, regions]: whether any
+    pixel of each warp region (`REGION_W` x `REGION_H`, numbered row-major) is set."""
+    nt = hit.shape[0]
+    nx, ny = tile_size // REGION_W, tile_size // REGION_H
+    return hit.reshape(nt, ny, REGION_H, nx, REGION_W).any(dim=4).any(dim=2).reshape(
+        nt, nx * ny)
 
-    Returns (image [3+F, H, W], final T [H, W], evaluated [H, W], blended [H, W]): the
-    last two count, per pixel, the instances evaluated before the pixel ended
-    (the ending one included) and the instances blended into it.
+
+def _blend_plain(means2d, conics, opacities, visible, colors, features, gauss_id,
+                 tile_start, bg, *, image_height, image_width, tile_size, regions=False):
+    """The kernel's arithmetic in plain PyTorch, all tiles at once, one instance depth
+    step at a time (memory stays O(image + budget) whatever the instance count).
+
+    Returns (image [3+F, H, W], final T [H, W], evaluated [H, W], blended [H, W],
+    blended_in [budget, regions] or None): `evaluated` and `blended` count, per pixel,
+    the instances evaluated before the pixel ended (the ending one included) and the
+    instances blended into it; with `regions`, `blended_in` flags the warp regions of
+    its tile each instance was blended into.
     """
     device = means2d.device
     attrs = colors if features is None else torch.cat([colors, features], dim=1)
@@ -117,13 +128,19 @@ def _blend_plain(means2d, conics, opacities, visible, colors, features, gauss_id
     done = ~inside
     evaluated = torch.zeros(px.shape, dtype=torch.int64, device=device)
     blended = torch.zeros(px.shape, dtype=torch.int64, device=device)
+    blended_in = None
+    if regions:
+        blended_in = torch.zeros((gauss_id.shape[0], (tile_size // REGION_W)
+                                  * (tile_size // REGION_H)), dtype=torch.bool,
+                                 device=device)
     depth = int(counts.max()) if num_tiles else 0
     last = max(gauss_id.shape[0] - 1, 0)
     for k in range(depth):
         if k % 32 == 0 and bool(done.all()):
             break
         live = (k < counts)[:, None] & ~done                   # [NT, P]
-        gid = gauss_id[torch.clamp(starts + k, max=last)].to(torch.int64)
+        idx = torch.clamp(starts + k, max=last)
+        gid = gauss_id[idx].to(torch.int64)
         gid = torch.where(k < counts, gid, 0)
         _, _, power, _, _, alpha = _instance_alpha(means2d, conics, opa, gid, fx, fy)
         ok = live & (power <= 0.0) & (alpha >= ALPHA_EPS)
@@ -136,32 +153,121 @@ def _blend_plain(means2d, conics, opacities, visible, colors, features, gauss_id
         evaluated += live
         blended += blend
         done = done | term
+        if regions:
+            has = k < counts
+            blended_in[idx[has]] = _regions_hit(blend, tile_size)[has]
 
     acc = torch.cat([acc[:, :3] + T[:, None, :] * bg[None, :, None], acc[:, 3:]], dim=1)
     size = dict(image_height=image_height, image_width=image_width, tile_size=tile_size)
     return (_to_image(acc, **size), _to_image(T[:, None], **size)[0],
             _to_image(evaluated[:, None], **size)[0],
-            _to_image(blended[:, None], **size)[0])
+            _to_image(blended[:, None], **size)[0], blended_in)
 
 
 def blend_forward_plain(means2d, conics, opacities, visible, colors, features, gauss_id,
                         tile_start, bg, *, image_height, image_width, tile_size):
     """Plain PyTorch version of `blend_forward` (same arguments and results)."""
-    image, t_final, _, _ = _blend_plain(
+    image, t_final, _, _, _ = _blend_plain(
         means2d, conics, opacities, visible, colors, features, gauss_id, tile_start, bg,
         image_height=image_height, image_width=image_width, tile_size=tile_size)
     return image, t_final
 
 
-def evaluated_pairs(means2d, conics, opacities, visible, colors, features, gauss_id,
-                    tile_start, bg, *, image_height, image_width,
-                    tile_size) -> tuple[int, int]:
-    """(instance, pixel) pairs the blend evaluates before each pixel ends, and the pairs
-    it blends, for these inputs (from the plain version): the work a kernel has to do."""
-    _, _, evaluated, blended = _blend_plain(
+def blend_pairs(means2d, conics, opacities, visible, colors, features, gauss_id,
+                tile_start, bg, *, image_height, image_width,
+                tile_size) -> tuple[int, int, torch.Tensor]:
+    """(instance, pixel) pairs the blend evaluates before each pixel ends, the pairs it
+    blends (the work a kernel has to do), and [budget, regions] bool: the warp regions
+    of its tile each instance is blended into; for these inputs, from the plain
+    version."""
+    _, _, evaluated, blended, blended_in = _blend_plain(
         means2d, conics, opacities, visible, colors, features, gauss_id, tile_start, bg,
-        image_height=image_height, image_width=image_width, tile_size=tile_size)
-    return int(evaluated.sum()), int(blended.sum())
+        image_height=image_height, image_width=image_width, tile_size=tile_size,
+        regions=True)
+    return int(evaluated.sum()), int(blended.sum()), blended_in
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's cull, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+#: the backward kernel's warp regions: warp w of a tile's 256 threads takes columns
+#: (w % 2) * 8 .. + 7 and rows (w // 2) * 4 .. + 3 of the tile
+REGION_W, REGION_H = 8, 4
+# csrc/blend_bwd.cu's cull constants: -ln(1/255); lambda's margin (absolute, relative);
+# the factor 1 - 8e-5 ac / det on the box's minimum; the overflow guard
+_LN_INV_ALPHA_EPS = 5.5412636
+_CULL_ABS, _CULL_LAM_REL, _CULL_REL, _CULL_MAG = 1e-4, 1e-5, 8e-5, 1e30
+
+
+def _box_keep(px0, px1, py0, py1, mx, my, a, b, c, f, lam_m):
+    """csrc/blend_bwd.cu box_keep, elementwise: False only where the pixels px0..px1 x
+    py0..py1 provably receive alpha < 1/255."""
+    x0, x1 = px0.to(torch.float32) - mx, px1.to(torch.float32) - mx
+    y0, y1 = py0.to(torch.float32) - my, py1.to(torch.float32) - my
+    s2 = (x0 * x0 + x1 * x1) + (y0 * y0 + y1 * y1)
+    mag = ((a + b.abs()) + c) * s2
+
+    def q(dx, dy):
+        return 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
+
+    def clamp(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
+    qmin = torch.minimum(
+        torch.minimum(q(x0, clamp(-b * x0 / c, y0, y1)), q(x1, clamp(-b * x1 / c, y0, y1))),
+        torch.minimum(q(clamp(-b * y0 / a, x0, x1), y0), q(clamp(-b * y1 / a, x0, x1), y1)))
+    qmin = torch.where(inside, 0.0, qmin)
+    return ~(mag < _CULL_MAG) | ~(qmin * f > lam_m)
+
+
+def _cull_terms(means2d, conics, opacities, visible, gid):
+    """Per Gaussian gid: the arguments of `_box_keep` after the pixel box, and whether
+    the test can be trusted (csrc/blend_bwd.cu region_mask's first lines)."""
+    f32 = torch.float32
+    mx, my = means2d[gid, 0], means2d[gid, 1]
+    a, b, c = conics[gid, 0], conics[gid, 1], conics[gid, 2]
+    opa = torch.where(visible, opacities, 0.0)[gid]
+    det = a * c - b * b
+    f = 1.0 - torch.tensor(_CULL_REL, dtype=f32) * ((a * c) / det)
+    trusted = ((opa > 0.0) & (opa <= torch.finfo(f32).max) & (a > 0.0) & (c > 0.0)
+               & (det > 0.0) & (f > 0.5))
+    lam = torch.log(opa) + torch.tensor(_LN_INV_ALPHA_EPS, dtype=f32)
+    lam_m = lam + (torch.tensor(_CULL_ABS, dtype=f32)
+                   + torch.tensor(_CULL_LAM_REL, dtype=f32) * lam.abs())
+    return (mx, my, a, b, c, f, lam_m), trusted
+
+
+def cull_box_keep(means2d, conics, opacities, visible, gid, px0, py0, box_w, box_h):
+    """The backward kernel's test of Gaussian gid against the pixel box px0 .. px0 +
+    box_w - 1 x py0 .. py0 + box_h - 1, elementwise over gid, px0, py0 (int64): False
+    only where every pixel of the box provably receives alpha < 1/255."""
+    terms, trusted = _cull_terms(means2d, conics, opacities, visible, gid)
+    return ~trusted | _box_keep(px0, px0 + box_w - 1, py0, py0 + box_h - 1, *terms)
+
+
+def warp_region_keep(means2d, conics, opacities, visible, gauss_id, tile_id, *, grid_x,
+                     tile_size=KERNEL_TILE) -> torch.Tensor:
+    """The backward kernel's cull (csrc/blend_bwd.cu region_mask), in plain PyTorch with
+    the same float32 arithmetic and margins: [instances, regions] bool, True where the
+    kernel evaluates instance i in that warp region of its tile tile_id[i] (the tile's
+    box is tested first); False for padding instances. Only the tests and chip_smoke.py
+    use it."""
+    valid = gauss_id < means2d.shape[0]
+    gid = torch.where(valid, gauss_id, 0).to(torch.int64)
+    tile = torch.where(valid, tile_id, 0).to(torch.int64)
+    terms, trusted = _cull_terms(means2d, conics, opacities, visible, gid)
+    tx0 = (tile % grid_x) * tile_size
+    ty0 = (tile // grid_x) * tile_size
+    keep_tile = _box_keep(tx0, tx0 + tile_size - 1, ty0, ty0 + tile_size - 1, *terms)
+    nx = tile_size // REGION_W
+    kept = torch.stack([
+        _box_keep(rx0, rx0 + REGION_W - 1, ry0, ry0 + REGION_H - 1, *terms)
+        for rx0, ry0 in ((tx0 + (w % nx) * REGION_W, ty0 + (w // nx) * REGION_H)
+                         for w in range(nx * (tile_size // REGION_H)))], dim=1)
+    kept = (kept & keep_tile[:, None]) | ~trusted[:, None]
+    return kept & valid[:, None]
 
 
 def _check(name, t, dtype, shape, device):

@@ -51,6 +51,9 @@ def segment_sum_cuda(d_pre: torch.Tensor, ends: torch.Tensor, n_out: int) -> tor
         raise ValueError("d_pre must be contiguous float32")
     if ends.dtype != torch.int32 or not ends.is_contiguous():
         raise ValueError("ends must be contiguous int32")
+    if d_pre.data_ptr() % 16:
+        raise ValueError("d_pre must start 16-byte aligned (the kernel copies it in "
+                         "16-byte words)")
     rows, width = d_pre.shape
     lib = _build.load(_SOURCE)
     fn = lib.segsum

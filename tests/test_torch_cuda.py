@@ -203,6 +203,127 @@ def test_segsum_kernel_matches_plain(cuda_device):
                                                             5000), atol=1e-5, rtol=0)
 
 
+def reset_field(n, seed, w, h, num_feat, device, ts=16):
+    """Screen-space blend inputs of a field just after an opacity reset: opacities
+    0.005-0.02 and sigmas of 10-30 px (rotated ellipses), binned uncut, as the
+    training path bins rects past the culled tile cap."""
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.uniform(-10, w + 10, n), rng.uniform(-10, h + 10, n)], 1)
+    major, minor = rng.uniform(10, 30, n), rng.uniform(10, 30, n)
+    minor = np.minimum(minor, major)
+    theta = rng.uniform(0, np.pi, n)
+    cos, sin = np.cos(theta), np.sin(theta)
+    cxx = major ** 2 * cos ** 2 + minor ** 2 * sin ** 2
+    cyy = major ** 2 * sin ** 2 + minor ** 2 * cos ** 2
+    cxy = (major ** 2 - minor ** 2) * cos * sin
+    det = cxx * cyy - cxy ** 2
+    radius = np.ceil(3 * major)
+    grid_x, grid_y = -(-w // ts), -(-h // ts)
+    tmin = np.stack([np.clip((means[:, 0] - radius) // ts, 0, grid_x),
+                     np.clip((means[:, 1] - radius) // ts, 0, grid_y)], 1)
+    tmax = np.stack([np.clip((means[:, 0] + radius + ts - 1) // ts, 0, grid_x),
+                     np.clip((means[:, 1] + radius + ts - 1) // ts, 0, grid_y)], 1)
+    visible = (tmax - tmin).prod(axis=1) > 0
+    feats = rng.normal(size=(n, max(num_feat, 1)))
+    arrays = dict(means2d=means, depths=rng.uniform(1, 10, n),
+                  conics=np.stack([cyy / det, -cxy / det, cxx / det], 1),
+                  radii=np.where(visible, radius, 0).astype(np.int32),
+                  colors=rng.uniform(size=(n, 3)), tiles_min=tmin.astype(np.int32),
+                  tiles_max=tmax.astype(np.int32), visible=visible)
+    prep = projection.PreprocessOut(*(
+        torch.tensor(arrays[k] if arrays[k].dtype in (np.int32, bool)
+                     else arrays[k].astype(np.float32), device=device)
+        for k in projection.PreprocessOut._fields))
+    inst = tiles.bin_gaussians(prep, grid_x=grid_x, grid_y=grid_y,
+                               budget=n * grid_x * grid_y,
+                               max_tiles_per_gaussian=grid_x * grid_y, tile_size=ts,
+                               cull=False)
+    opac = torch.tensor(rng.uniform(0.005, 0.02, n).astype(np.float32), device=device)
+    feats = (feats / np.linalg.norm(feats, axis=1, keepdims=True))[:, :num_feat]
+    return prep, inst, opac, (torch.tensor(feats.astype(np.float32), device=device)
+                              if num_feat else None)
+
+
+def backward_args(prep, inst, opac, feats, w, h, seed, device):
+    bg = torch.tensor([0.2, 0.5, 0.9], device=device)
+    args = rasterize_cuda.blend_args(prep, inst, opac, feats, bg)
+    image, t_final = rasterize_cuda.blend_forward(*args, image_height=h, image_width=w,
+                                                  tile_size=16)
+    g_image, g_tfinal, total = residuals(image, t_final, bg, seed)
+    return (*args[:8], inst.presort_slot, g_image, g_tfinal, total, t_final)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_feat,grad_mode", [(0, "full"), (3, "full"),
+                                                (3, "feature")])
+def test_backward_kernel_on_an_opacity_reset_field(cuda_device, num_feat, grad_mode):
+    """K2 against the plain backward where its cull skips most (instance, warp) pairs:
+    low opacities, large sigmas, uncut binning; replayed T bit-equal to K1's."""
+    w, h = 200, 129
+    prep, inst, opac, feats = reset_field(400, 8, w, h, num_feat, cuda_device)
+    assert int(inst.dropped) == 0 and int(inst.rect_dropped) == 0
+    bwd_args = backward_args(prep, inst, opac, feats, w, h, 8, cuda_device)
+    size = dict(image_height=h, image_width=w, tile_size=16, grad_mode=grad_mode)
+    d_pre, t_replay = rasterize_cuda.blend_backward(*bwd_args, return_t=True, **size)
+    torch.cuda.synchronize()
+    assert torch.equal(t_replay, bwd_args[-1])
+    ref = rasterize_cuda.blend_backward_plain(*bwd_args, **size)
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    assert bool((scale > 0).all())
+    assert float(((d_pre - ref).abs() / scale).max()) < 1e-4
+    keep = rasterize_cuda.warp_region_keep(
+        prep.means2d, prep.conics, opac, prep.visible, inst.gauss_id, inst.tile_id,
+        grid_x=-(-w // 16))[:int(inst.num_instances)]
+    assert float(keep.float().mean()) < 0.5     # the cull skips most pairs here
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_mode", ["full", "feature"])
+def test_backward_and_segsum_kernels_are_deterministic(cuda_device, grad_mode):
+    """K2's d_pre and K3's sums are bit-equal over two launches (fixed-order
+    reductions, no atomics)."""
+    from langsplat_tpu_torch.ops.segsum import segment_sum_cuda
+    w, h = 200, 129
+    prep, inst, opac, feats = reset_field(400, 9, w, h, 3, cuda_device)
+    bwd_args = backward_args(prep, inst, opac, feats, w, h, 9, cuda_device)
+    size = dict(image_height=h, image_width=w, tile_size=16, grad_mode=grad_mode)
+    first = rasterize_cuda.blend_backward_cuda(*bwd_args, **size)
+    second = rasterize_cuda.blend_backward_cuda(*bwd_args, **size)
+    assert float(first.abs().max()) > 0 and torch.equal(first, second)
+    ends = torch.clamp(inst.gauss_offsets, 0, inst.gauss_id.shape[0]).contiguous()
+    n = prep.means2d.shape[0]
+    assert torch.equal(segment_sum_cuda(first, ends, n), segment_sum_cuda(first, ends, n))
+
+
+@pytest.mark.cuda
+def test_segsum_kernel_long_unaligned_and_empty_segments(cuda_device):
+    """K3 with a segment longer than its shared-memory chunk (6001 columns), spans that
+    start at unaligned columns in rows whose width is odd, a block of only empty
+    segments, and empty segments at both ends, against the plain sum on the CPU
+    (1e-5 of each row's largest sum)."""
+    from langsplat_tpu_torch.ops.segsum import segment_sum_cuda, segment_sum_plain
+    rng = np.random.default_rng(12)
+    n = 3000
+    lengths = rng.integers(0, 20, n)
+    lengths[:5] = 0
+    lengths[-5:] = 0
+    lengths[600:900] = 0            # block 2 and part of 3: nothing at all
+    lengths[1300] = 6001
+    ends = (7 + np.concatenate([[0], np.cumsum(lengths)])).astype(np.int32)
+    width = int(ends[-1]) + 5
+    assert width % 2 == 1
+    for rows in (9, 3, 17):
+        d_pre = torch.tensor(rng.normal(size=(rows, width)).astype(np.float32),
+                             device=cuda_device)
+        ends_t = torch.tensor(ends, device=cuda_device)
+        out = segment_sum_cuda(d_pre, ends_t, n).cpu()
+        ref = segment_sum_plain(d_pre.cpu(), ends_t.cpu(), n)
+        assert out.shape == (rows, n)
+        assert bool((out[:, lengths == 0] == 0).all())
+        scale = ref.abs().amax(dim=1, keepdim=True)
+        assert float(((out - ref).abs() / scale).max()) <= 1e-5, rows
+
+
 def field_params(n, seed, num_feat):
     rng = np.random.default_rng(seed)
     s = scene(n, seed, max(num_feat, 1))
