@@ -12,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit):
   2. the kernels (csrc/blend_fwd.cu, blend_bwd.cu, segsum.cu) are built with nvcc, one
      process per source, all started together, then each is compared with its plain
      version at small odd sizes: the blend forward and backward with F = 0 and 3 and
-     both grad modes, the segment sum with segments longer than 32;
+     both grad modes, the segment sum with segments longer than 32 (the forward
+     kernel, wherever it is compared, also twice with itself, bit for bit);
   3. the render path: a synthetic COLMAP scene (3 cameras at 1024x768) and a trained
      model of 1M Gaussians (sh_degree 3, 3 language-feature channels, made from
      --seed) written as PLY + npz checkpoint, rendered by
@@ -21,7 +22,8 @@ Phases (any failure ends the run with a non-zero exit):
      kernel is compared with its plain version on the path's own full-width inputs;
   4. render timings at full width, view 0: one whole `render_full` (host clock, ending
      in a synchronize), and with CUDA events preprocess, binning and the blend kernel,
-     the plain version's time, and the kernel's bound from this run's work;
+     the plain version's time, the kernel's bound from this run's work, and the share
+     of (instance, warp-region) pairs the blend kernels' cull keeps;
   5. the training path: the same cameras over 1M SfM points of the bench box and
      language-feature maps (from --seed), trained by
      `langsplat_tpu_torch.cli.train_cli.main` for 20 phase-A steps (every Gaussian
@@ -36,8 +38,8 @@ Phases (any failure ends the run with a non-zero exit):
      against the forward kernel's bit for bit, its d_pre over two launches bit for
      bit, and the segment-sum kernel against the plain segment sum on the CPU, row by
      row, and over two launches bit for bit; the share of (instance, warp-region) pairs
-     the backward kernel's cull keeps, counted with its plain mirror, which must keep
-     every region the plain forward blends in;
+     the blend kernels' cull (one for the forward and the backward) keeps, counted with
+     its plain mirror, which must keep every region the plain forward blends in;
   7. training timings at full width: per step (host clock, median of 5 after warm-up),
      its parts with CUDA events (forward render, loss, backward, optimizer), the
      device's idle share over 3 profiled steps, and the forward, backward and
@@ -95,6 +97,9 @@ BUDGET_FLAGS = ["--budget_factor", "24"]
 SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu"]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, FP32 outside the tensor cores
+# The cull's kept shares are counted on the same inputs by its plain mirror, not read
+# from the kernels, which both take their masks from this one device routine
+CULL_COUNTED_BY = "rasterize_cuda.warp_region_keep, mirror of blend_common.cuh stage_batch"
 
 
 def log(msg: str) -> None:
@@ -220,10 +225,14 @@ def blend_inputs(field, cam, pipe, include_feature: bool, device, sh_degree: int
 
 
 def compare(args, h, w) -> float:
-    """Max abs error of the kernel against the plain version on the same inputs."""
+    """Max abs error of the kernel against the plain version on the same inputs; raises
+    unless a second launch gives the same image and final T bit for bit."""
     size = dict(image_height=h, image_width=w, tile_size=TILE)
     image, t_final = rasterize_cuda.blend_forward_cuda(*args, **size)
+    again = rasterize_cuda.blend_forward_cuda(*args, **size)
     torch.cuda.synchronize()
+    if not (torch.equal(image, again[0]) and torch.equal(t_final, again[1])):
+        raise RuntimeError("blend_fwd gave different outputs in two launches")
     ref_image, ref_t = rasterize_cuda.blend_forward_plain(*args, **size)
     if not (torch.isfinite(image).all() and torch.isfinite(t_final).all()):
         raise RuntimeError("blend kernel produced non-finite values")
@@ -466,9 +475,10 @@ def backward_bound(bwd_args, grad_mode, h, w, num_instances: int, pairs,
 
 
 def cull_shares(bargs, inst, blended_in, chunk: int = 1 << 21) -> dict:
-    """The share of (instance, warp-region) pairs that the backward kernel's cull keeps,
-    counted with its plain mirror on these inputs, beside the share that the plain
-    forward blends; raises if the cull would skip a region an instance blends in."""
+    """The share of (instance, warp-region) pairs that the blend kernels' cull keeps
+    (the forward's and the backward's are one), counted with its plain mirror on these
+    inputs, beside the share that the plain forward blends; raises if the cull would
+    skip a region an instance blends in."""
     means2d, conics, opac, visible = bargs[:4]
     num = int(inst.num_instances)
     kept = blended = missed = 0
@@ -482,7 +492,7 @@ def cull_shares(bargs, inst, blended_in, chunk: int = 1 << 21) -> dict:
         blended += int(hit.sum())
         missed += int((hit & ~keep).sum())
     if missed:
-        raise RuntimeError(f"the backward kernel's cull skips {missed} (instance, "
+        raise RuntimeError(f"the blend kernels' cull skips {missed} (instance, "
                            f"region) pairs that blend")
     regions = blended_in.shape[1]
     return dict(cull_kept_share=kept / max(num * regions, 1),
@@ -660,7 +670,7 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
         fwd_err = compare(bargs, HEIGHT, WIDTH)
     log(f"phase 6 ({phase}): blend_fwd (F={3 if feature else 0}) vs plain on view 0 at "
         f"full width, {num_instances} instances: max_abs_err {fwd_err:.3e} "
-        f"(tol {TOL:.0e})")
+        f"(tol {TOL:.0e}); bit-equal over two launches")
     if not fwd_err <= TOL:
         raise RuntimeError(f"blend_fwd disagrees with its plain version: {fwd_err}")
     bwd_args, t_final = backward_inputs(bargs, inst, HEIGHT, WIDTH, target,
@@ -689,8 +699,9 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
     pairs = (evaluated, blended)
     shares = cull_shares(bargs, inst, blended_in)
     del blended_in
-    log(f"phase 6 ({phase}): the backward's cull keeps {shares['cull_kept_share']:.4f} of "
-        f"the (instance, warp-region) pairs; the plain forward blends in "
+    log(f"phase 6 ({phase}): the blend kernels' cull keeps "
+        f"{shares['cull_kept_share']:.4f} of the (instance, warp-region) pairs; the plain "
+        f"forward blends in "
         f"{shares['blended_region_share']:.4f}; none it blends in is skipped")
 
     # 7. timings
@@ -839,11 +850,13 @@ def main() -> int:
                         *bargs, **size), reps=20),
                     plain_ms=cuda_ms(lambda: rasterize_cuda.blend_forward_plain(
                         *bargs, **size), reps=1))
-                evaluated, blended, _ = rasterize_cuda.blend_pairs(*bargs, **size)
+                evaluated, blended, blended_in = rasterize_cuda.blend_pairs(*bargs, **size)
                 bound, bound_by, work = blend_bound(bargs, HEIGHT, WIDTH,
                                                     int(inst.num_instances),
                                                     (evaluated, blended))
-                timings[mode].update(bound_ms=bound, bound_by=bound_by, **work)
+                timings[mode].update(bound_ms=bound, bound_by=bound_by, **work,
+                                     **cull_shares(bargs, inst, blended_in))
+                del blended_in
                 # the backward on this opaque trained field (pixels end early), for
                 # comparison with the training runs' fields
                 grad_mode = "feature" if feat else "full"
@@ -947,10 +960,12 @@ def main() -> int:
              bound_by=feat["bound_by"], library_ms=None, tol=TOL, tol_of="absolute",
              bound_counts="blended pairs",
              bound_evaluated_ms=feat["bound_evaluated_ms"],
+             cull_kept_share=feat["cull_kept_share"], cull_counted_by=CULL_COUNTED_BY,
              train_ms=[ta["blend_fwd_ms"], tb["blend_fwd_ms"]],
              train_bound_ms=[ta["blend_fwd_bound_ms"], tb["blend_fwd_bound_ms"]],
              train_bound_evaluated_ms=[t["blend_fwd_work"]["bound_evaluated_ms"]
-                                       for t in (ta, tb)]),
+                                       for t in (ta, tb)],
+             train_cull_kept_share=[ta["cull_kept_share"], tb["cull_kept_share"]]),
         dict(name="blend_bwd", route="cuda", source="langsplat_tpu_torch/csrc/blend_bwd.cu",
              replaces="langsplat_tpu/ops/rasterize_pallas.py:746",
              launches=launches["blend_bwd"], max_abs_err=errors["blend_bwd"],
@@ -962,7 +977,8 @@ def main() -> int:
              feature_ms=tb["blend_bwd_ms"], feature_bound_ms=tb["blend_bwd_bound_ms"],
              feature_bound_by=tb["blend_bwd_bound_by"],
              feature_bound_evaluated_ms=tb["blend_bwd_work"]["bound_evaluated_ms"],
-             cull_kept_share=[ta["cull_kept_share"], tb["cull_kept_share"]]),
+             cull_kept_share=[ta["cull_kept_share"], tb["cull_kept_share"]],
+             cull_counted_by=CULL_COUNTED_BY),
         dict(name="segsum", route="cuda", source="langsplat_tpu_torch/csrc/segsum.cu",
              replaces="langsplat_tpu/ops/segsum_pallas.py:42",
              launches=launches["segsum"], max_abs_err=errors["segsum"],

@@ -18,7 +18,7 @@
 // replay (the forward's ~17 FP32 operations and one expf per pair a warp evaluates,
 // ~40 + 3C more per blended pair) and the per-instance reduction of 9 + F sums over the
 // tile's pixels, whose warp shuffles issue at a quarter of the FP32 rate. With the cull
-// below, a warp evaluates the instances that can reach its pixels, so the work follows
+// (below), a warp evaluates the instances that can reach its pixels, so the work follows
 // the blended pairs rather than every pair of the binned tiles. Device-memory traffic
 // is small: the instance attributes are read once per tile, the per-pixel gradients
 // once, and each kept instance's 9 + F sums written once.
@@ -29,16 +29,16 @@
 // falloff/alpha/transmittance arithmetic (blend_common.cuh) the replay shares, so it
 // includes exactly the pairs the forward blended.
 //
-// Cull: when a batch is staged, each instance is tested against the tile and against
-// each warp's region: the minimum over the region's pixel box of the conic quadratic
-// Q = -power, against lambda = ln(opacity / (1/255)), as binning's exact tile cull does
-// (langsplat_tpu/ops/tiles.py:137-182). A warp skips an instance whose minimum exceeds
-// lambda by a margin that covers every rounding of the per-pixel test (region_mask
-// below), so the per-pixel test of the forward still decides every pair the kernel
-// keeps, the replayed final T equals the forward's bit for bit, and no pair that
-// blends is skipped. The training path bins Gaussians uncut once their tile rect
-// passes the culled tile cap, and after an opacity reset the alpha >= 1/255 ellipse is
-// small next to the tiles kept: there most (instance, warp) pairs are skipped.
+// Cull: the forward's, from blend_common.cuh (stage_batch, which both kernels call).
+// When a batch is staged, the block tests each instance against the tile and against
+// each warp's region (the box minimum of the conic quadratic against ln(opacity * 255),
+// with a rounding margin), and a warp walks only the instances it kept; the attributes
+// and slot of an instance no warp keeps are not gathered. Every pair skipped has
+// alpha < 1/255, so the per-pixel test still decides every pair the kernel keeps, the
+// replayed final T equals the forward's bit for bit, and no pair that blends is
+// skipped. The training path bins Gaussians uncut once their tile rect passes the
+// culled tile cap, and after an opacity reset the alpha >= 1/255 ellipse is small next
+// to the tiles kept: there most (instance, warp) pairs are skipped.
 //
 // Each thread carries T and Prefix. The per-instance sums are reduced in a fixed order,
 // so the result is bitwise deterministic and no atomics are used. A warp walks the
@@ -64,8 +64,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
-
 #include "blend_common.cuh"
 
 namespace {
@@ -73,96 +71,16 @@ namespace {
 using blend::kAlphaEps;
 using blend::kAlphaMax;
 using blend::kBlock;
+using blend::kFull;
+using blend::kRegionH;
+using blend::kRegionW;
 using blend::kTermEps;
 using blend::kTile;
+using blend::kWarps;
+using blend::MaskScratch;
+using blend::stage_batch;
 
-constexpr int kWarps = kBlock / 32;
-constexpr int kRegionW = 8;   // a warp's pixels: 8 columns x 4 rows of its tile
-constexpr int kRegionH = 4;
 constexpr int kSub = 32;      // instances per reduction stage
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kAllRegions = (1u << kWarps) - 1u;
-
-// The cull's constants; ops/rasterize_cuda.py (warp_region_keep) mirrors them and the
-// arithmetic below, operation for operation.
-constexpr float kLnInvAlphaEps = 5.5412636f;   // -ln(1/255)
-constexpr float kCullAbs = 1e-4f;      // lambda's margin: expf, the product, logf
-constexpr float kCullLamRel = 1e-5f;
-constexpr float kCullRel = 8e-5f;      // 2 kappa * 4, kappa = 1e-5 >> the ~5e-7 relative
-                                       // rounding of Q against its terms' magnitude
-constexpr float kCullMag = 1e30f;      // beyond this the terms could overflow
-
-__device__ __forceinline__ float fmul(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ float fadd(float x, float y) { return __fadd_rn(x, y); }
-__device__ __forceinline__ float fsub(float x, float y) { return __fsub_rn(x, y); }
-
-// Q = 0.5 (a dx^2 + c dy^2) + b dx dy
-__device__ __forceinline__ float quad(float dx, float dy, float a, float b, float c) {
-    return fadd(fmul(0.5f, fadd(fmul(fmul(a, dx), dx), fmul(fmul(c, dy), dy))),
-                fmul(fmul(b, dx), dy));
-}
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-    return fminf(fmaxf(x, lo), hi);
-}
-
-// The minimum of Q over the box [x0, x1] x [y0, y1] (offsets from the mean): 0 if the
-// mean lies inside, else the least of the four edges' 1D minima. Needs a, c > 0.
-__device__ __forceinline__ float box_qmin(float x0, float x1, float y0, float y1, float a,
-                                          float b, float c) {
-    if (x0 <= 0.0f && 0.0f <= x1 && y0 <= 0.0f && 0.0f <= y1) return 0.0f;
-    const float e0 = quad(x0, clampf(__fdiv_rn(fmul(-b, x0), c), y0, y1), a, b, c);
-    const float e1 = quad(x1, clampf(__fdiv_rn(fmul(-b, x1), c), y0, y1), a, b, c);
-    const float e2 = quad(clampf(__fdiv_rn(fmul(-b, y0), a), x0, x1), y0, a, b, c);
-    const float e3 = quad(clampf(__fdiv_rn(fmul(-b, y1), a), x0, x1), y1, a, b, c);
-    return fminf(fminf(e0, e1), fminf(e2, e3));
-}
-
-// May the pixels px0..px1 x py0..py1 receive alpha >= 1/255 from the Gaussian? False
-// only when the box's minimum of Q, shrunk by the factor f, exceeds lambda plus its
-// margin lam_m, and every term of Q stays far from overflow (NaN fails every test).
-// Why that is exact: the per-pixel power is -Q + e with |e| <= ~5e-7 S, S = 0.5 (a dx^2
-// + c dy^2) + |b dx dy| <= K Q and K = (1 + rho) / (1 - rho) <= 4ac / det (rho =
-// |b| / sqrt(ac)), and the box's Q is computed with the same relative error; f = 1 -
-// 8e-5 ac / det covers both with a 20-fold reserve.
-__device__ __forceinline__ bool box_keep(int px0, int px1, int py0, int py1, float mx,
-                                         float my, float a, float b, float c, float f,
-                                         float lam_m) {
-    const float x0 = fsub(static_cast<float>(px0), mx);
-    const float x1 = fsub(static_cast<float>(px1), mx);
-    const float y0 = fsub(static_cast<float>(py0), my);
-    const float y1 = fsub(static_cast<float>(py1), my);
-    const float s2 = fadd(fadd(fmul(x0, x0), fmul(x1, x1)), fadd(fmul(y0, y0), fmul(y1, y1)));
-    const float mag = fmul(fadd(fadd(a, fabsf(b)), c), s2);
-    if (!(mag < kCullMag)) return true;
-    return !(fmul(box_qmin(x0, x1, y0, y1, a, b, c), f) > lam_m);
-}
-
-// Bit w set: warp w's region may receive alpha >= 1/255 from the instance (all bits
-// where the test cannot be trusted: opacity <= 0 or not finite, a conic that is not
-// positive definite or nearly degenerate, NaN anywhere). The tile is tested first.
-__device__ __forceinline__ unsigned region_mask(float mx, float my, float a, float b,
-                                                float c, float opa, int tx0, int ty0) {
-    if (!(opa > 0.0f && opa <= FLT_MAX && a > 0.0f && c > 0.0f)) return kAllRegions;
-    const float det = fsub(fmul(a, c), fmul(b, b));
-    if (!(det > 0.0f)) return kAllRegions;
-    const float f = fsub(1.0f, fmul(kCullRel, __fdiv_rn(fmul(a, c), det)));
-    if (!(f > 0.5f)) return kAllRegions;
-    const float lam = fadd(logf(opa), kLnInvAlphaEps);
-    const float lam_m = fadd(lam, fadd(kCullAbs, fmul(kCullLamRel, fabsf(lam))));
-    if (!box_keep(tx0, tx0 + kTile - 1, ty0, ty0 + kTile - 1, mx, my, a, b, c, f, lam_m))
-        return 0u;
-    unsigned mask = 0u;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-        const int rx0 = tx0 + (w % 2) * kRegionW;
-        const int ry0 = ty0 + (w / 2) * kRegionH;
-        if (box_keep(rx0, rx0 + kRegionW - 1, ry0, ry0 + kRegionH - 1, mx, my, a, b, c, f,
-                     lam_m))
-            mask |= 1u << w;
-    }
-    return mask;
-}
 
 // One halving step of the transposed reduce-scatter, then the next: lanes with bit H
 // clear keep values [0, H) and send [H, 2H) to their partner (lane ^ H), the others the
@@ -232,6 +150,7 @@ blend_bwd_kernel(const float* __restrict__ means2d,     // [N, 2]
     __shared__ float s_attr[NA][kBlock];
     __shared__ int s_slot[kBlock];
     __shared__ unsigned char s_mask[kBlock];
+    __shared__ MaskScratch s_scratch;
     __shared__ float s_part[kWarps][kSub][R];
 
     const int tile = blockIdx.x;
@@ -263,26 +182,20 @@ blend_bwd_kernel(const float* __restrict__ means2d,     // [N, 2]
         // every thread has finished the previous batch here; the block leaves once
         // all of its pixels are done (the instances left unwritten keep zero)
         if (__syncthreads_count(done) == kBlock) break;
-        const int i = base + threadIdx.x;
-        if (i < end) {
-            const int gi = gauss_id[i];
-            const float2 m = make_float2(means2d[2 * gi], means2d[2 * gi + 1]);
-            const float4 co = make_float4(conics[3 * gi], conics[3 * gi + 1],
-                                          conics[3 * gi + 2],
-                                          visible[gi] ? opacities[gi] : 0.0f);
-            s_mean[threadIdx.x] = m;
-            s_conic_opa[threadIdx.x] = co;
-            s_mask[threadIdx.x] = static_cast<unsigned char>(
-                region_mask(m.x, m.y, co.x, co.y, co.z, co.w, tx0, ty0));
-            if constexpr (!FEATURE_ONLY) {
+        // the batch's positions, conics and masks; each thread gathers its instance's
+        // attributes and slot where the instance may get a bit
+        stage_batch(base, end, tx0, ty0, gauss_id, means2d, conics, opacities, visible,
+                    s_mean, s_conic_opa, s_mask, s_scratch, [&](int gi, int i) {
+                        if constexpr (!FEATURE_ONLY) {
 #pragma unroll
-                for (int c = 0; c < 3; ++c) s_attr[c][threadIdx.x] = colors[3 * gi + c];
+                            for (int c = 0; c < 3; ++c)
+                                s_attr[c][threadIdx.x] = colors[3 * gi + c];
 #pragma unroll
-                for (int f = 0; f < F; ++f) s_attr[3 + f][threadIdx.x] = features[F * gi + f];
-            }
-            s_slot[threadIdx.x] = presort_slot[i];
-        }
-        __syncthreads();
+                            for (int f = 0; f < F; ++f)
+                                s_attr[3 + f][threadIdx.x] = features[F * gi + f];
+                        }
+                        s_slot[threadIdx.x] = presort_slot[i];
+                    });
         const int count = min(kBlock, end - base);
         for (int k0 = 0; k0 < count; k0 += kSub) {
             const int kn = min(kSub, count - k0);

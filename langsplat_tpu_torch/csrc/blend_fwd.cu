@@ -9,22 +9,44 @@
 //   excluded; otherwise C += alpha T (RGB, features) and T = test_T.
 // Pixels sit at integer coordinates (no +0.5). The background is added to RGB only.
 //
-// What bounds it on this card: the per-(instance, pixel) arithmetic (about 17 + 2C
-// FP32 operations and one expf per pair that is evaluated, C = 3 + F channels) and the
-// shared-memory reads that feed it. Device-memory traffic is small: each instance's
-// 9 + F attributes are fetched once per tile and the image is written once.
-// The falloff, alpha and transmittance arithmetic comes from blend_common.cuh, which
-// the backward (blend_bwd.cu) shares, so the backward's replay includes exactly the
-// pairs blended here and reaches the same final transmittance bit for bit.
+// What bounds it on this card: issue slots, spent on the per-(instance, pixel)
+// arithmetic (about 17 + 2C FP32 operations and one expf per pair that is evaluated,
+// C = 3 + F channels) and on deciding which pairs to evaluate. The work the function
+// needs follows the pairs that blend, but binning lists every tile of a Gaussian's rect
+// once the rect passes the culled tile cap (the training path), and after an opacity
+// reset the alpha >= 1/255 ellipse covers a small part of them: evaluating every pair
+// of every listed instance there spends ten falloffs for each pair that blends.
+// Device-memory traffic is small: each instance's 9 + F attributes are fetched once per
+// tile and the image is written once.
 //
-// Design: one block of 256 threads per tile, one thread per pixel. The block walks
-// gauss_id[tile_start[t] : tile_start[t+1]] in batches of 256; each thread gathers one
-// instance's attributes straight from the per-Gaussian arrays into shared memory
-// (no packed per-instance buffer is built, unlike the TPU path's pack_instances), and
-// then every thread reads them back as broadcasts. The block leaves as soon as all of
-// its pixels are done (__syncthreads_count). Results go channel-major straight into
-// [3 + F, H, W] and [H, W], with the ragged image edge masked. fp32 throughout, expf
-// (not __expf), no fast-math.
+// The cull: blend_common.cuh's stage_batch, which the backward calls too (one logf,
+// and box minima of the conic against ln(opacity * 255) with a proven rounding margin).
+// Each warp owns an 8x4 region of the tile. When a batch of instances is staged, the
+// block tests each instance against the tile, then the instances that pass against the
+// eight regions, spread over the block one test a thread, and gives each instance an
+// 8-bit mask. A warp then walks only the instances whose bit it holds, 32 at a time by
+// a ballot over the masks, in depth order. Every pair the cull skips has alpha < 1/255,
+// which the per-pixel test would skip as well, so each pixel blends the same pairs in
+// the same order as without the cull. The falloff, alpha and transmittance arithmetic
+// comes from blend_common.cuh, which the backward (blend_bwd.cu) shares, so the
+// backward's replay includes exactly the pairs blended here and reaches the same final
+// transmittance bit for bit.
+//
+// Design: one block of 256 threads per tile, one thread per pixel, warp w on columns
+// (w % 2) * 8 .. + 7 and rows (w / 2) * 4 .. + 3. The block walks gauss_id[tile_start[t]
+// : tile_start[t+1]] in batches of 256; each thread gathers one instance's position,
+// conic and opacity straight from the per-Gaussian arrays into shared memory (no packed
+// per-instance buffer is built, unlike the TPU path's pack_instances), and gathers its
+// colors and features only where the cull may give it a bit. The per-pixel tests of a
+// pair are predicates, not branches. A warp whose pixels are all done stops evaluating;
+// the block leaves as soon as all of its pixels are done (__syncthreads_count). Results
+// go channel-major straight into [3 + F, H, W] and [H, W], with the ragged image edge
+// masked. fp32 throughout, expf (not __expf), no fast-math.
+//
+// Measured on the training fields and left out (PERF.md §6): the region tests inside
+// each staging thread (a warp then runs them whenever one of its instances passes the
+// tile: slower), a minimum of 5 or 6 blocks per SM (no faster; 6 spills), and batches
+// of 512 instances (a few percent faster, but the F = 3 build spills).
 
 #include <cuda_runtime.h>
 
@@ -35,8 +57,13 @@ namespace {
 using blend::kAlphaEps;
 using blend::kAlphaMax;
 using blend::kBlock;
+using blend::kFull;
+using blend::kRegionH;
+using blend::kRegionW;
 using blend::kTermEps;
 using blend::kTile;
+using blend::MaskScratch;
+using blend::stage_batch;
 
 template <int F>
 __global__ void __launch_bounds__(kBlock)
@@ -57,10 +84,16 @@ blend_fwd_kernel(const float* __restrict__ means2d,    // [N, 2]
     __shared__ float2 s_mean[kBlock];
     __shared__ float4 s_conic_opa[kBlock];
     __shared__ float s_attr[C][kBlock];
+    __shared__ unsigned char s_mask[kBlock];
+    __shared__ MaskScratch s_scratch;
 
     const int tile = blockIdx.x;
-    const int px = (tile % grid_x) * kTile + threadIdx.x % kTile;
-    const int py = (tile / grid_x) * kTile + threadIdx.x / kTile;
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    const int tx0 = (tile % grid_x) * kTile;
+    const int ty0 = (tile / grid_x) * kTile;
+    const int px = tx0 + (warp % 2) * kRegionW + lane % kRegionW;
+    const int py = ty0 + (warp / 2) * kRegionH + lane / kRegionW;
     const bool inside = px < width && py < height;
     const float fx = static_cast<float>(px);
     const float fy = static_cast<float>(py);
@@ -77,38 +110,46 @@ blend_fwd_kernel(const float* __restrict__ means2d,    // [N, 2]
         // every thread has finished the previous batch here, so shared memory may be
         // overwritten; the block leaves once all of its pixels are done
         if (__syncthreads_count(done) == kBlock) break;
-        const int i = base + threadIdx.x;
-        if (i < end) {
-            const int g = gauss_id[i];
-            s_mean[threadIdx.x] = make_float2(means2d[2 * g], means2d[2 * g + 1]);
-            s_conic_opa[threadIdx.x] = make_float4(
-                conics[3 * g], conics[3 * g + 1], conics[3 * g + 2],
-                visible[g] ? opacities[g] : 0.0f);
+        // the batch's positions, conics and masks; each thread gathers its instance's
+        // colors and features where the instance may get a bit
+        stage_batch(base, end, tx0, ty0, gauss_id, means2d, conics, opacities, visible,
+                    s_mean, s_conic_opa, s_mask, s_scratch, [&](int g, int) {
 #pragma unroll
-            for (int c = 0; c < 3; ++c) s_attr[c][threadIdx.x] = colors[3 * g + c];
+                        for (int c = 0; c < 3; ++c)
+                            s_attr[c][threadIdx.x] = colors[3 * g + c];
 #pragma unroll
-            for (int f = 0; f < F; ++f) s_attr[3 + f][threadIdx.x] = features[F * g + f];
-        }
-        __syncthreads();
+                        for (int f = 0; f < F; ++f)
+                            s_attr[3 + f][threadIdx.x] = features[F * g + f];
+                    });
         const int count = min(kBlock, end - base);
-        for (int k = 0; k < count && !done; ++k) {
-            const float2 m = s_mean[k];
-            const float4 co = s_conic_opa[k];
-            const float dx = fx - m.x;
-            const float dy = fy - m.y;
-            const float power = blend::falloff_power(dx, dy, co.x, co.y, co.z);
-            if (power > 0.0f) continue;
-            const float alpha = fminf(kAlphaMax, blend::raw_alpha(co.w, expf(power)));
-            if (alpha < kAlphaEps) continue;
-            const float test_t = blend::next_transmittance(T, alpha);
-            if (test_t < kTermEps) {
-                done = true;
-                break;
-            }
-            const float w = alpha * T;
+        // the instances of the batch this warp kept, 32 at a time, in depth order
+        for (int k0 = 0; k0 < count; k0 += 32) {
+            if (__all_sync(kFull, done)) break;
+            unsigned todo = __ballot_sync(
+                kFull, k0 + lane < count && ((s_mask[k0 + lane] >> warp) & 1u) != 0u);
+            while (todo != 0u) {
+                const int k = k0 + __ffs(static_cast<int>(todo)) - 1;
+                todo &= todo - 1u;
+                const float2 m = s_mean[k];
+                const float4 co = s_conic_opa[k];
+                const float dx = fx - m.x;
+                const float dy = fy - m.y;
+                const float power = blend::falloff_power(dx, dy, co.x, co.y, co.z);
+                const float alpha = fminf(kAlphaMax, blend::raw_alpha(co.w, expf(power)));
+                // the per-pixel tests as predicates, not branches: a pixel that is done,
+                // a positive power or alpha < 1/255 leaves the pixel as it is (a NaN
+                // power fails no test, as in the backward's replay)
+                const bool ok = !done && !(power > 0.0f) && !(alpha < kAlphaEps);
+                const float test_t = blend::next_transmittance(T, alpha);
+                const bool ends = test_t < kTermEps;
+                done = done || (ok && ends);
+                if (ok && !ends) {
+                    const float w = alpha * T;
 #pragma unroll
-            for (int c = 0; c < C; ++c) acc[c] += w * s_attr[c][k];
-            T = test_t;
+                    for (int c = 0; c < C; ++c) acc[c] += w * s_attr[c][k];
+                    T = test_t;
+                }
+            }
         }
     }
 

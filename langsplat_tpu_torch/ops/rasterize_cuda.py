@@ -188,21 +188,21 @@ def blend_pairs(means2d, conics, opacities, visible, colors, features, gauss_id,
 
 
 # ---------------------------------------------------------------------------
-# The backward kernel's cull, in plain PyTorch
+# The blend kernels' cull, in plain PyTorch
 # ---------------------------------------------------------------------------
 
-#: the backward kernel's warp regions: warp w of a tile's 256 threads takes columns
+#: the blend kernels' warp regions: warp w of a tile's 256 threads takes columns
 #: (w % 2) * 8 .. + 7 and rows (w // 2) * 4 .. + 3 of the tile
 REGION_W, REGION_H = 8, 4
-# csrc/blend_bwd.cu's cull constants: -ln(1/255); lambda's margin (absolute, relative);
-# the factor 1 - 8e-5 ac / det on the box's minimum; the overflow guard
+# csrc/blend_common.cuh's cull constants: -ln(1/255); lambda's margin (absolute,
+# relative); the factor 1 - 8e-5 ac / det on the box's minimum; the overflow guard
 _LN_INV_ALPHA_EPS = 5.5412636
 _CULL_ABS, _CULL_LAM_REL, _CULL_REL, _CULL_MAG = 1e-4, 1e-5, 8e-5, 1e30
 
 
 def _box_keep(px0, px1, py0, py1, mx, my, a, b, c, f, lam_m):
-    """csrc/blend_bwd.cu box_keep, elementwise: False only where the pixels px0..px1 x
-    py0..py1 provably receive alpha < 1/255."""
+    """csrc/blend_common.cuh box_keep, elementwise: False only where the pixels px0..px1
+    x py0..py1 provably receive alpha < 1/255."""
     x0, x1 = px0.to(torch.float32) - mx, px1.to(torch.float32) - mx
     y0, y1 = py0.to(torch.float32) - my, py1.to(torch.float32) - my
     s2 = (x0 * x0 + x1 * x1) + (y0 * y0 + y1 * y1)
@@ -224,7 +224,7 @@ def _box_keep(px0, px1, py0, py1, mx, my, a, b, c, f, lam_m):
 
 def _cull_terms(means2d, conics, opacities, visible, gid):
     """Per Gaussian gid: the arguments of `_box_keep` after the pixel box, and whether
-    the test can be trusted (csrc/blend_bwd.cu region_mask's first lines)."""
+    the test can be trusted (csrc/blend_common.cuh cull_terms)."""
     f32 = torch.float32
     mx, my = means2d[gid, 0], means2d[gid, 1]
     a, b, c = conics[gid, 0], conics[gid, 1], conics[gid, 2]
@@ -240,20 +240,22 @@ def _cull_terms(means2d, conics, opacities, visible, gid):
 
 
 def cull_box_keep(means2d, conics, opacities, visible, gid, px0, py0, box_w, box_h):
-    """The backward kernel's test of Gaussian gid against the pixel box px0 .. px0 +
-    box_w - 1 x py0 .. py0 + box_h - 1, elementwise over gid, px0, py0 (int64): False
-    only where every pixel of the box provably receives alpha < 1/255."""
+    """The blend kernels' cull test (csrc/blend_common.cuh box_keep, which the forward
+    and the backward kernel both call) of Gaussian gid against the pixel box px0 ..
+    px0 + box_w - 1 x py0 .. py0 + box_h - 1, elementwise over gid, px0, py0 (int64):
+    False only where every pixel of the box provably receives alpha < 1/255."""
     terms, trusted = _cull_terms(means2d, conics, opacities, visible, gid)
     return ~trusted | _box_keep(px0, px0 + box_w - 1, py0, py0 + box_h - 1, *terms)
 
 
 def warp_region_keep(means2d, conics, opacities, visible, gauss_id, tile_id, *, grid_x,
                      tile_size=KERNEL_TILE) -> torch.Tensor:
-    """The backward kernel's cull (csrc/blend_bwd.cu region_mask), in plain PyTorch with
-    the same float32 arithmetic and margins: [instances, regions] bool, True where the
-    kernel evaluates instance i in that warp region of its tile tile_id[i] (the tile's
-    box is tested first); False for padding instances. Only the tests and chip_smoke.py
-    use it."""
+    """The cull of both blend kernels, forward and backward (csrc/blend_common.cuh
+    stage_batch, which both call), in plain PyTorch with the same float32 arithmetic and
+    margins:
+    [instances, regions] bool, True where the kernels evaluate instance i in that warp
+    region of its tile tile_id[i] (the tile's box is tested first); False for padding
+    instances. Only the tests and chip_smoke.py use it."""
     valid = gauss_id < means2d.shape[0]
     gid = torch.where(valid, gauss_id, 0).to(torch.int64)
     tile = torch.where(valid, tile_id, 0).to(torch.int64)

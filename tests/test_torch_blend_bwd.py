@@ -24,6 +24,9 @@ from langsplat_tpu_torch.ops import _build, projection, rasterize_cuda, tiles
 from tests.test_projection_and_dense import make_camera
 from tests.test_tiles import random_scene
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 ATOL = 5e-5
 
 # name -> (n, seed, spread, w, h, budget, tmax, num_feat, grad_mode, bg)

@@ -10,6 +10,9 @@ from langsplat_tpu.core import transforms as jtf
 from langsplat_tpu_torch.core import sh as tsh
 from langsplat_tpu_torch.core import transforms as ttf
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 RTOL = 1e-6   # same float32 expressions in the same order; only rounding may differ
 ATOL = 1e-6
 

@@ -277,6 +277,59 @@ def test_backward_kernel_on_an_opacity_reset_field(cuda_device, num_feat, grad_m
     assert float(keep.float().mean()) < 0.5     # the cull skips most pairs here
 
 
+def reset_field_with_opaque(seed, w, h, num_feat, device):
+    """`reset_field` with one Gaussian in ten made opaque (0.97), so that some pixels
+    end; blend_forward's arguments for it, and its instance buffer."""
+    prep, inst, opac, feats = reset_field(400, seed, w, h, num_feat, device)
+    opac = opac.clone()
+    opac[::10] = 0.97
+    bg = torch.tensor([0.2, 0.5, 0.9], device=device)
+    return prep, inst, opac, rasterize_cuda.blend_args(prep, inst, opac, feats, bg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_feat", [0, 3])
+def test_forward_kernel_on_an_opacity_reset_field(cuda_device, num_feat):
+    """K1 against the plain forward where its warp-region cull skips most (instance,
+    warp) pairs: low opacities, large sigmas, uncut binning, and a few opaque Gaussians
+    so that some pixels end (their final T compared too). 2e-4 absolute, as above."""
+    w, h = 200, 129
+    prep, inst, opac, args = reset_field_with_opaque(8, w, h, num_feat, cuda_device)
+    assert int(inst.dropped) == 0 and int(inst.rect_dropped) == 0
+    size = dict(image_height=h, image_width=w, tile_size=16)
+    launches = _build.LAUNCHES["blend_fwd"]
+    image, t_final = rasterize_cuda.blend_forward(*args, **size)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["blend_fwd"] == launches + 1
+    ref_image, ref_t, evaluated, _, _ = rasterize_cuda._blend_plain(*args, **size)
+    # a pixel ended where it evaluated fewer instances than its tile lists
+    counts = (inst.tile_start[1:] - inst.tile_start[:-1]).to(torch.int64)
+    tile_counts = rasterize_cuda._to_image(counts[:, None, None].expand(-1, 1, 256), h, w,
+                                           16)[0]
+    ended = evaluated < tile_counts
+    assert int(ended.sum()) > 0
+    assert bool(torch.isfinite(image).all())
+    torch.testing.assert_close(image, ref_image, atol=CARD_ATOL, rtol=0)
+    torch.testing.assert_close(t_final, ref_t, atol=CARD_ATOL, rtol=0)
+    torch.testing.assert_close(t_final[ended], ref_t[ended], atol=CARD_ATOL, rtol=0)
+    keep = rasterize_cuda.warp_region_keep(
+        prep.means2d, prep.conics, opac, prep.visible, inst.gauss_id, inst.tile_id,
+        grid_x=-(-w // 16))[:int(inst.num_instances)]
+    assert float(keep.float().mean()) < 0.5     # the cull skips most pairs here
+
+
+@pytest.mark.cuda
+def test_forward_kernel_is_deterministic(cuda_device):
+    """K1's image and final T are bit-equal over two launches."""
+    w, h = 200, 129
+    _, _, _, args = reset_field_with_opaque(9, w, h, 3, cuda_device)
+    size = dict(image_height=h, image_width=w, tile_size=16)
+    image, t_final = rasterize_cuda.blend_forward_cuda(*args, **size)
+    image2, t_final2 = rasterize_cuda.blend_forward_cuda(*args, **size)
+    assert float((1.0 - t_final).max()) > 0.5
+    assert torch.equal(image, image2) and torch.equal(t_final, t_final2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("grad_mode", ["full", "feature"])
 def test_backward_and_segsum_kernels_are_deterministic(cuda_device, grad_mode):

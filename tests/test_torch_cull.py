@@ -1,9 +1,13 @@
-"""PyTorch port, the blend backward kernel's warp-region cull (csrc/blend_bwd.cu
-region_mask), through its plain mirror `rasterize_cuda.warp_region_keep` /
-`cull_box_keep` (the same float32 arithmetic and margins):
+"""PyTorch port, the warp-region cull of both blend kernels, forward and backward
+(csrc/blend_common.cuh stage_batch), through its plain mirror
+`rasterize_cuda.warp_region_keep` / `cull_box_keep` (the same float32 arithmetic and
+margins):
 
 - every (instance, pixel) pair the plain forward blends lies in a warp region the cull
-  keeps, so the kernel skips no pair that blends (and its replayed T stays K1's);
+  keeps, so the kernels skip no pair that blends (and K2's replayed T stays K1's);
+- the plain forward restricted to the kept (instance, region) pairs, as the forward
+  kernel walks them, gives the same image and final T, bit for bit, as the plain
+  forward over every pair;
 - taken at 16x16 granularity, the cull keeps every tile that the JAX package's exact
   tile cull `tile_pass_mask` (langsplat_tpu/ops/tiles.py:118) keeps, for visible
   Gaussians whose tile rect fits in tmax (past tmax JAX keeps every tile uncut).
@@ -23,6 +27,10 @@ import torch
 from langsplat_tpu.ops import projection as jproj
 from langsplat_tpu.ops.tiles import tile_pass_mask as jax_tile_pass_mask
 from langsplat_tpu_torch.ops import projection, rasterize_cuda, tiles
+from langsplat_tpu_torch.ops.rasterize_reference import ALPHA_EPS, TERM_EPS
+
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
 
 TILE = 16
 
@@ -82,18 +90,24 @@ def port_prep(s):
     return projection.PreprocessOut(*(torch.tensor(s[k]) for k in projection.PreprocessOut._fields))
 
 
-@pytest.mark.parametrize("name", sorted(SCENES))
-def test_cull_keeps_every_blended_pair(name):
+def binned_uncut(name):
+    """(prep, opacities, instance buffer, grid_x) of scene `name`, binned uncut, as the
+    training path bins rects past the culled tile cap."""
     n, w, h = SCENES[name][:3]
     s = make_scene(*SCENES[name])
     prep = port_prep(s)
     grid_x, grid_y = -(-w // TILE), -(-h // TILE)
-    opac = torch.tensor(s["opac"])
-    # uncut, as the training path bins rects past the culled tile cap
     inst = tiles.bin_gaussians(prep, grid_x=grid_x, grid_y=grid_y, budget=n * grid_x * grid_y,
                                max_tiles_per_gaussian=grid_x * grid_y, tile_size=TILE,
                                cull=False)
     assert int(inst.dropped) == 0 and int(inst.rect_dropped) == 0
+    return prep, torch.tensor(s["opac"]), inst, grid_x
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_cull_keeps_every_blended_pair(name):
+    w, h = SCENES[name][1:3]
+    prep, opac, inst, grid_x = binned_uncut(name)
     args = rasterize_cuda.blend_args(prep, inst, opac, None, torch.zeros(3))
     evaluated, blended, blended_in = rasterize_cuda.blend_pairs(
         *args, image_height=h, image_width=w, tile_size=TILE)
@@ -145,3 +159,65 @@ def test_cull_keeps_every_tile_jax_keeps(name):
     assert want.sum() > 0 and (~want).sum() > 0
     missed = want & ~ours.numpy()
     assert int(missed.sum()) == 0, f"{int(missed.sum())} tiles JAX keeps are culled"
+
+
+def plain_forward_over_kept(args, keep, *, image_height, image_width, tile_size=TILE):
+    """The plain forward (`rasterize_cuda._blend_plain`'s arithmetic, operation for
+    operation) over only the (instance, warp region) pairs `keep` [budget, regions]
+    marks, as the forward kernel walks them: a pixel outside its instance's kept regions
+    does not evaluate that instance. Returns (image, final T)."""
+    means2d, conics, opacities, visible, colors, features, gauss_id, tile_start, bg = args
+    rc = rasterize_cuda
+    attrs = colors if features is None else torch.cat([colors, features], dim=1)
+    opa = torch.where(visible, opacities, 0.0)
+    starts = tile_start[:-1].to(torch.int64)
+    counts = (tile_start[1:] - tile_start[:-1]).to(torch.int64)
+    px, py, inside = rc._pixel_grid(image_height, image_width, tile_size, means2d.device)
+    fx, fy = px.to(torch.float32), py.to(torch.float32)
+    lp = torch.arange(tile_size * tile_size)
+    region_of = ((lp // tile_size) // rc.REGION_H * (tile_size // rc.REGION_W)
+                 + (lp % tile_size) // rc.REGION_W)        # [P], warp numbering
+    T = torch.ones(px.shape, dtype=torch.float32)
+    acc = torch.zeros((px.shape[0], attrs.shape[1]) + px.shape[1:], dtype=torch.float32)
+    done = ~inside
+    last = max(gauss_id.shape[0] - 1, 0)
+    for k in range(int(counts.max()) if px.shape[0] else 0):
+        if k % 32 == 0 and bool(done.all()):
+            break
+        idx = torch.clamp(starts + k, max=last)
+        live = (k < counts)[:, None] & ~done & keep[idx][:, region_of]
+        gid = torch.where(k < counts, gauss_id[idx].to(torch.int64), 0)
+        _, _, power, _, _, alpha = rc._instance_alpha(means2d, conics, opa, gid, fx, fy)
+        ok = live & (power <= 0.0) & (alpha >= ALPHA_EPS)
+        test_t = T * (1.0 - alpha)
+        term = ok & (test_t < TERM_EPS)
+        blend = ok & ~term
+        w = torch.where(blend, alpha * T, 0.0)
+        acc = acc + w[:, None, :] * attrs[gid][:, :, None]
+        T = torch.where(blend, test_t, T)
+        done = done | term
+    acc = torch.cat([acc[:, :3] + T[:, None, :] * bg[None, :, None], acc[:, 3:]], dim=1)
+    size = dict(image_height=image_height, image_width=image_width, tile_size=tile_size)
+    return rc._to_image(acc, **size), rc._to_image(T[:, None], **size)[0]
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_plain_forward_over_kept_regions_is_unchanged(name):
+    """The forward kernel's walk, in plain PyTorch: restricted to the cull's kept
+    (instance, region) pairs, the blend gives the same image and T bit for bit."""
+    n, w, h = SCENES[name][:3]
+    prep, opac, inst, grid_x = binned_uncut(name)
+    rng = np.random.default_rng(SCENES[name][3])
+    feats = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    args = rasterize_cuda.blend_args(prep, inst, opac, feats,
+                                     torch.tensor([0.2, 0.5, 0.9]))
+    keep = rasterize_cuda.warp_region_keep(prep.means2d, prep.conics, opac, prep.visible,
+                                           inst.gauss_id, inst.tile_id, grid_x=grid_x)
+    size = dict(image_height=h, image_width=w, tile_size=TILE)
+    image, t_final = rasterize_cuda.blend_forward_plain(*args, **size)
+    culled_image, culled_t = plain_forward_over_kept(args, keep, image_height=h,
+                                                     image_width=w)
+    assert not bool(keep[:int(inst.num_instances)].all())    # the cull skips pairs
+    assert float((1.0 - t_final).max()) > 0.1                # and something blends
+    assert torch.equal(culled_t, t_final)
+    assert torch.equal(culled_image, image)

@@ -23,6 +23,9 @@ from langsplat_tpu_torch.train import loop as tloop
 from tests.test_data import make_colmap_scene
 from tests.test_torch_render import field_params
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 
 def test_run_config_written_by_jax_loads(tmp_path):
     cfg = jconfig.TrainConfig()

@@ -15,6 +15,9 @@ from langsplat_tpu_torch.models import gaussian_field as tgf
 from langsplat_tpu_torch.models.gaussian_field import FIELD_NAMES, from_numpy
 from langsplat_tpu_torch.train import densify as tdn
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 ATOL = 1e-6
 
 

@@ -11,6 +11,9 @@ from pathlib import Path
 import pytest
 import torch
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "langsplat_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "langsplat_tpu")

@@ -13,6 +13,9 @@ from langsplat_tpu.ops.knn import mean_knn_sq_dist as jax_knn
 from langsplat_tpu_torch.core import losses as tlosses
 from langsplat_tpu_torch.ops.knn import mean_knn_sq_dist
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 ATOL = 1e-6
 
 

@@ -15,6 +15,9 @@ from langsplat_tpu_torch.ops import projection as tproj
 from tests.test_projection_and_dense import make_camera
 from tests.test_tiles import random_scene
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 FLOAT_TOL = dict(atol=1e-5, rtol=1e-5)
 
 

@@ -21,6 +21,9 @@ from tests.test_projection_and_dense import make_camera
 from tests.test_tiles import random_scene
 from tests.test_torch_tiles import jax_bin, jax_prep
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 ATOL = 3e-5
 
 

@@ -15,6 +15,9 @@ from langsplat_tpu_torch.ops import render as trender
 
 from tests.test_projection_and_dense import make_camera
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 ATOL = 3e-5
 W, H = 64, 48
 jax_render = jax.jit(jrender.render, static_argnames=("settings",))

@@ -21,6 +21,9 @@ from langsplat_tpu_torch.models.gaussian_field import FIELD_NAMES, from_numpy
 
 from tests.test_data import make_colmap_scene
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 ATOL = 3e-5
 ITER = 7
 

@@ -16,6 +16,9 @@ from langsplat_tpu.ops.segsum_pallas import segment_sum_bounded
 from langsplat_tpu_torch.ops import _build
 from langsplat_tpu_torch.ops.segsum import segment_sum, segment_sum_cuda
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

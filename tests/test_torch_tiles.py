@@ -16,6 +16,9 @@ from langsplat_tpu_torch.ops.projection import PreprocessOut
 from tests.test_projection_and_dense import make_camera
 from tests.test_tiles import random_scene
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 FIELDS = ("gauss_id", "tile_id", "tile_start", "num_instances", "dropped",
           "rect_dropped", "presort_slot", "gauss_offsets")
 

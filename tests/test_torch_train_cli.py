@@ -16,6 +16,9 @@ from langsplat_tpu_torch.models import field_io as tio
 
 from tests.test_data import make_colmap_scene
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 PHASE_A = ["--no_include_feature", "--resolution", "1", "--iterations", "30", "--quiet",
            "--densify_from_iter", "5", "--densification_interval", "10",
            "--densify_until_iter", "25", "--opacity_reset_interval", "20",

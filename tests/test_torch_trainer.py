@@ -36,6 +36,9 @@ from langsplat_tpu_torch.train import trainer as ttr
 from tests.test_projection_and_dense import make_camera
 from tests.test_tiles import random_scene
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 W, H, N = 48, 32, 80
 LOSS_RTOL, GRAD_ATOL, OPT_RTOL = 1e-5, 5e-5, 1e-6
 
