@@ -45,14 +45,34 @@ Phases (any failure ends the run with a non-zero exit):
      device's idle share over 3 profiled steps, and the forward, backward and
      segment-sum kernels' times, plain times, bounds (each blend bound counts the
      blended pairs alone, with the count over every evaluated pair beside it), and the
-     library segment sum as a yardstick.
-The line before the last is the `kernels` JSON; the last line is the result JSON.
+     library segment sum as a yardstick;
+  8. the autoencoder (no hand-written kernel on this path): a LERF-scale
+     `language_features/` from --seed (200 images x 4 levels x 80 masks of unit 512-d
+     rows, ~64k rows, with small segment maps) through
+     `langsplat_tpu_torch.cli.autoencoder_cli` at the published widths (lr 7e-4, batch
+     64) for 2 epochs with the best-checkpoint eval on, then its `test` CLI encoding
+     every row into `language_features_dim3/`; the card's encode and decode on 4096 rows
+     against the same checkpoint on the CPU (1e-5), TF32 off; ms per training step (CUDA
+     events, median), epoch and encode times;
+  9. the LERF eval: three feature levels rendered at 1024x768 by the render CLI from
+     phase 3's field with its language features replaced per level (from --seed), a
+     labelme GT of N_VIEWS frames with 8 prompts each (polygons of 20+ vertices), prompt
+     embeddings from --seed and phase 8's checkpoint, through
+     `langsplat_tpu_torch.cli.eval_cli --no_vis`; per frame the decode, relevancy,
+     filter+IoU and localization ms, mIoU and localization accuracy; then frame 0's eval
+     (`iou_loc.eval_frame`, the CLI's per-frame path) on the card and on the CPU: the
+     [L, P, H, W] relevancy maps within 1e-5, the masks' flipped share, chosen levels
+     and IoUs held as stated at EVAL_FLIP_TOL.
+The launch counters are zeroed before, and read after, each path (phases 3, 5 A and B,
+8, and 9's render and eval). The line before the last is the `kernels` JSON; the last
+line is the result JSON.
 It needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -100,6 +120,18 @@ FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, FP32 outside the tensor cores
 # The cull's kept shares are counted on the same inputs by its plain mirror, not read
 # from the kernels, which both take their masks from this one device routine
 CULL_COUNTED_BY = "rasterize_cuda.warp_region_keep, mirror of blend_common.cuh stage_batch"
+# Phase 8: a LERF-OVS scene's SAM table (~200 images, 4 mask levels, ~80 masks a level)
+AE_IMAGES, AE_LEVELS, AE_MASKS = 200, 4, 80
+AE_EPOCHS = 2               # of the published 100
+AE_SEG_SHAPE = (48, 64)     # the copied segment maps, cut from image size (not read)
+AE_TOL = 1e-5               # AE encode / decode, card against the CPU
+# Phase 9
+EVAL_PROMPTS = 8
+REL_TOL = 1e-5              # relevancy maps, card against the CPU
+# Card and CPU masks may differ where a normalized relevancy lies within rounding of the
+# 0.4 threshold (or the mean filter's sums round apart): held to this share of the mask
+# pixels, with each prompt's IoU within the same amount
+EVAL_FLIP_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -741,6 +773,250 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
 
 
 # ---------------------------------------------------------------------------
+# Phases 8 and 9: the autoencoder and the eval
+# ---------------------------------------------------------------------------
+
+def zero_launches() -> None:
+    for key in _build.LAUNCHES:
+        _build.LAUNCHES[key] = 0
+
+
+def write_ae_features(root: str, seed: int) -> int:
+    """`<root>/language_features/<image>_{f,s}.npy` of a LERF-scale scene: per image,
+    AE_LEVELS x AE_MASKS unit 512-d rows (CLIP-like: 64 scene-wide directions plus noise)
+    and [4, *AE_SEG_SHAPE] segment maps. Returns the number of rows."""
+    rng = np.random.default_rng(seed + 3)
+    lf_dir = os.path.join(root, "language_features")
+    os.makedirs(lf_dir)
+    centers = rng.normal(size=(64, 512))
+    rows = AE_LEVELS * AE_MASKS
+    for i in range(AE_IMAGES):
+        feats = centers[rng.integers(0, 64, rows)] + 0.5 * rng.normal(size=(rows, 512))
+        feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+        np.save(os.path.join(lf_dir, f"frame_{i:05d}_f.npy"), feats.astype(np.float32))
+        seg = rng.integers(-1, AE_MASKS, (AE_LEVELS,) + AE_SEG_SHAPE).astype(np.int32)
+        np.save(os.path.join(lf_dir, f"frame_{i:05d}_s.npy"), seg)
+    return AE_IMAGES * rows
+
+
+def autoencoder_phase(tmp: str, seed: int, device) -> dict:
+    """Phase 8: the AE train and test CLIs at the published widths, checked and timed."""
+    from langsplat_tpu_torch.cli import autoencoder_cli
+    scene, ckpt_root = os.path.join(tmp, "ae_scene"), os.path.join(tmp, "ae_ckpt")
+    t0 = time.perf_counter()
+    rows = write_ae_features(scene, seed)
+    log(f"phase 8: wrote {AE_IMAGES} images x {AE_LEVELS} levels x {AE_MASKS} masks = "
+        f"{rows} unit 512-d rows in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 cut: epochs 100 -> {AE_EPOCHS} with --eval_from_frac 0 (the "
+        f"best-checkpoint eval runs from epoch 1); segment maps {AE_SEG_SHAPE[1]}x"
+        f"{AE_SEG_SHAPE[0]} (the test CLI copies them, nothing reads them); widths, "
+        f"lr 7e-4 and batch 64 as published")
+    common = ["--dataset_path", scene, "--dataset_name", "scene", "--ckpt_root", ckpt_root]
+    zero_launches()
+    t0 = time.perf_counter()
+    train = autoencoder_cli.train_main(common + ["--num_epochs", str(AE_EPOCHS),
+                                                 "--eval_from_frac", "0",
+                                                 "--seed", str(seed)])
+    test = autoencoder_cli.test_main(common)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    cli_s = time.perf_counter() - t0
+    log(f"phase 8: AE train ({AE_EPOCHS} epochs x {train['steps_per_epoch']} steps) + "
+        f"test CLIs in {cli_s:.1f} s; launches {launches} (no hand-written kernel on "
+        f"this path); best epoch {train['best_epoch']}, best loss {train['best_loss']:.6f}")
+    if not (train["best_epoch"] >= 1 and np.isfinite(train["best_loss"])):
+        raise RuntimeError(f"the AE's best-checkpoint eval did not run: {train}")
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("TF32 is on for float32 matmuls after the AE CLIs")
+
+    # outputs, and the card against the CPU on the same checkpoint
+    lf_dir, out_dir = (os.path.join(scene, d) for d in ("language_features",
+                                                        "language_features_dim3"))
+    data, counts = autoencoder_cli.load_feature_dataset(lf_dir)
+    codes, out_counts = autoencoder_cli.load_feature_dataset(out_dir)
+    same_maps = all(np.array_equal(np.load(os.path.join(lf_dir, f"{name[:-2]}_s.npy")),
+                                   np.load(os.path.join(out_dir, f"{name[:-2]}_s.npy")))
+                    for name in counts)
+    if out_counts != counts or codes.shape != (rows, 3) or not np.isfinite(codes).all() \
+            or not same_maps:
+        raise RuntimeError("bad language_features_dim3 output")
+    dims = ([256, 128, 64, 32, 3], [16, 32, 64, 128, 256, 256, 512])
+    cpu_model = autoencoder_cli.load_ae_checkpoint(train["checkpoint"], *dims)
+    gpu_model = autoencoder_cli.load_ae_checkpoint(train["checkpoint"], *dims).to(device)
+    x = torch.from_numpy(data[:4096])
+    with torch.no_grad():
+        z_cpu = cpu_model.encode(x)
+        enc_err = float((torch.from_numpy(codes[:4096]) - z_cpu).abs().max())
+        enc_err = max(enc_err, float((gpu_model.encode(x.to(device)).cpu() - z_cpu)
+                                     .abs().max()))
+        dec_err = float((gpu_model.decode(z_cpu.to(device)).cpu() - cpu_model.decode(z_cpu))
+                        .abs().max())
+    norm_err = float(np.abs(np.linalg.norm(codes, axis=1) - 1).max())
+    log(f"phase 8: card vs CPU on 4096 rows (the test CLI's codes and a fresh encode): "
+        f"encode max_abs_err {enc_err:.3e}, decode {dec_err:.3e} (tol {AE_TOL:.0e}); "
+        f"codes' |norm - 1| <= {norm_err:.1e}; TF32 off")
+    if not (enc_err <= AE_TOL and dec_err <= AE_TOL and norm_err <= 1e-5):
+        raise RuntimeError("the AE on the card disagrees with the CPU")
+
+    # ms per training step: CUDA events around each of 60 steps, median of the last 50
+    step = autoencoder_cli.TrainStep(gpu_model, 7e-4)
+    batches = torch.from_numpy(data[np.arange(60 * 64) % len(data)]).to(device)
+    batches = batches.reshape(60, 64, 512)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(60)]
+    for (start, end), batch in zip(events, batches):
+        start.record()
+        step(batch)
+        end.record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events][10:]
+    timing = dict(rows=rows, steps_per_epoch=train["steps_per_epoch"],
+                  step_ms=float(np.median(step_ms)), step_ms_min=float(np.min(step_ms)),
+                  epoch_s=train["epoch_seconds"],
+                  epoch_step_ms=[t / train["steps_per_epoch"] * 1e3
+                                 for t in train["epoch_seconds"]],
+                  encode_s=test["seconds"], cli_s=cli_s, launches=launches,
+                  errors=dict(encode=enc_err, decode=dec_err))
+    log("phase 8: " + json.dumps(timing))
+    return dict(timing, checkpoint_root=ckpt_root, dims=dims)
+
+
+def write_labelme_gt(root: str, seed: int, prompts: list[str]) -> None:
+    """labelme GT of N_VIEWS frames (`frame_0000{i+1}.json` + `.jpg`), each with one
+    polygon of 20-60 vertices per prompt (a star around a random centre, its points
+    clipped to the image as labelme keeps them)."""
+    from PIL import Image
+    rng = np.random.default_rng(seed + 4)
+    os.makedirs(root)
+    for f in range(1, N_VIEWS + 1):
+        objects = []
+        for prompt in prompts:
+            n = int(rng.integers(20, 61))
+            ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+            radius = rng.uniform(0.4, 1.0, (n, 1)) * rng.uniform(40, 250)
+            centre = rng.uniform([0, 0], [WIDTH, HEIGHT])
+            pts = np.clip(centre + radius * np.stack([np.cos(ang), np.sin(ang)], 1),
+                          0, [WIDTH, HEIGHT])
+            objects.append({"category": prompt,
+                            "bbox": [*pts.min(axis=0).tolist(), *pts.max(axis=0).tolist()],
+                            "segmentation": pts.tolist()})
+        with open(os.path.join(root, f"frame_{f:05d}.json"), "w") as fh:
+            json.dump({"info": {"height": HEIGHT, "width": WIDTH,
+                                "name": f"frame_{f:05d}.jpg"}, "objects": objects}, fh)
+        Image.fromarray(rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).save(
+            os.path.join(root, f"frame_{f:05d}.jpg"))
+
+
+def eval_phase(tmp: str, seed: int, device, model_dir: str, scene_dir: str,
+               ae: dict) -> dict:
+    """Phase 9: feature levels through the render CLI, then the eval CLI on the card,
+    then frame 0 on the card and on the CPU."""
+    from langsplat_tpu_torch.cli.eval_cli import main as eval_main, make_decoder
+    from langsplat_tpu_torch.cli.autoencoder_cli import load_ae_checkpoint
+    from langsplat_tpu_torch.cli.render_cli import main as render_main
+    from langsplat_tpu_torch.evaluation import iou_loc
+    from langsplat_tpu_torch.evaluation.clip_text import PrecomputedTextEncoder
+    from langsplat_tpu_torch.evaluation.relevancy import NEGATIVE_PROMPTS
+
+    t0 = time.perf_counter()
+    field = field_io.load_field(os.path.join(model_dir, "chkpnt1.npz"), device="cpu")[0]
+    feat_root = os.path.join(tmp, "eval_out")
+    level_dirs = []
+    for lvl in (1, 2, 3):
+        d = os.path.join(feat_root, f"scene_{lvl}")
+        os.makedirs(os.path.join(d, "point_cloud"))
+        os.symlink(os.path.join(model_dir, "point_cloud", "iteration_1"),
+                   os.path.join(d, "point_cloud", "iteration_1"))
+        lf = np.random.default_rng(seed + 10 + lvl).normal(size=(field.capacity, 3))
+        field_io.save_field(os.path.join(d, "chkpnt1.npz"), dataclasses.replace(
+            field, language_feature=torch.from_numpy(lf.astype(np.float32))), step=1,
+            spatial_lr_scale=1.0, active_sh_degree=3)
+        level_dirs.append(d)
+    del field
+    prompts = [f"prompt_{k}" for k in range(EVAL_PROMPTS)]
+    label_root = os.path.join(tmp, "label")
+    write_labelme_gt(os.path.join(label_root, "scene"), seed, prompts)
+    rng = np.random.default_rng(seed + 5)
+    text = os.path.join(tmp, "text_embeddings.npz")
+    np.savez(text, **{p: rng.normal(size=512).astype(np.float32)
+                      for p in prompts + list(NEGATIVE_PROMPTS)})
+    log(f"phase 9: wrote 3 feature-level checkpoints, the labelme GT ({N_VIEWS} frames x "
+        f"{EVAL_PROMPTS} prompts) and the prompt embeddings in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    zero_launches()
+    t0 = time.perf_counter()
+    for d in level_dirs:
+        render_main(["-m", d, "-s", scene_dir, "--skip_test", "--include_feature"])
+    torch.cuda.synchronize()
+    render_launches = dict(_build.LAUNCHES)
+    render_s = time.perf_counter() - t0
+    log(f"phase 9: render CLI, 3 levels x {N_VIEWS} views of features in {render_s:.1f} s;"
+        f" launches {render_launches}")
+    if render_launches["blend_fwd"] < 3 * N_VIEWS:
+        raise RuntimeError("the feature levels were not rendered through the blend kernel")
+
+    zero_launches()
+    t0 = time.perf_counter()
+    result = eval_main(["--dataset_name", "scene", "--feat_dir", feat_root,
+                        "--ae_ckpt_dir", ae["checkpoint_root"], "--json_folder", label_root,
+                        "--text_embeddings", text, "--iteration", "1", "--no_vis",
+                        "--output_dir", os.path.join(tmp, "eval_result")])
+    torch.cuda.synchronize()
+    eval_launches = dict(_build.LAUNCHES)
+    eval_s = time.perf_counter() - t0
+    for fr in result["frames"]:
+        log(f"phase 9: frame {fr['idx']}: decode {fr['decode_ms']:.1f} ms, relevancy "
+            f"{fr['relevancy_ms']:.1f} ms, filter+IoU {fr['filter_iou_ms']:.1f} ms, "
+            f"localization {fr['localization_ms']:.1f} ms (host clock, each ending in a "
+            f"synchronize); levels {fr['levels']}")
+    log(f"phase 9: eval CLI on the card in {eval_s:.1f} s (GT parsing and file reads "
+        f"included); mIoU {result['miou']:.4f}, localization accuracy "
+        f"{result['localization_acc']:.4f}; launches {eval_launches} (no hand-written "
+        f"kernel on this path)")
+    if len(result["frames"]) != N_VIEWS or not np.isfinite(result["miou"]):
+        raise RuntimeError(f"bad eval result: {result}")
+
+    # frame 0, the CLI's per-frame path, on the card and on the CPU
+    feat_dirs = [os.path.join(d, "train", "ours_1", "renders_npy") for d in level_dirs]
+    sem_feat = iou_loc.load_frame_features(feat_dirs, 0)
+    img_ann = iou_loc.eval_gt_lerfdata(os.path.join(label_root, "scene"))[0]["0"]
+    encoder = PrecomputedTextEncoder(text)
+    pos, neg = encoder(list(img_ann)), encoder(list(NEGATIVE_PROMPTS))
+    ckpt = os.path.join(ae["checkpoint_root"], "scene", "best_ckpt.npz")
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        model = load_ae_checkpoint(ckpt, *ae["dims"]).to(dev)
+        t0 = time.perf_counter()
+        fr = iou_loc.eval_frame(sem_feat, img_ann, make_decoder(model), pos, neg, dev)
+        fr["seconds"] = time.perf_counter() - t0
+        runs.append({k: v.cpu() if torch.is_tensor(v) else v for k, v in fr.items()})
+    gpu, cpu = runs
+    rel_err = float((gpu["valid_map"] - cpu["valid_map"]).abs().max())
+    flipped = float((gpu["masks"] != cpu["masks"]).float().mean())
+    top2 = torch.topk(cpu["score"], 2, dim=0).values
+    clear = (top2[0] - top2[1]) > REL_TOL      # prompts whose best level is no near-tie
+    level_ok = all(a == b or not bool(c) for a, b, c in zip(gpu["levels"], cpu["levels"],
+                                                            clear))
+    iou_err = max(abs(a - b) for a, b in zip(gpu["ious"], cpu["ious"]))
+    log(f"phase 9: frame 0 on the card vs the CPU ({cpu['seconds']:.1f} s there): "
+        f"relevancy maps [L, P, H, W] = {list(gpu['valid_map'].shape)} max_abs_err "
+        f"{rel_err:.3e} (tol {REL_TOL:.0e}); masks flipped {flipped:.2e} of the pixels "
+        f"(tol {EVAL_FLIP_TOL:.0e}); chosen levels {gpu['levels']} vs {cpu['levels']} "
+        f"({int(clear.sum())} of {len(clear)} prompts without a near-tie); IoUs within "
+        f"{iou_err:.2e}; localization {gpu['acc']} vs {cpu['acc']}")
+    if not (rel_err <= REL_TOL and flipped <= EVAL_FLIP_TOL and level_ok
+            and iou_err <= EVAL_FLIP_TOL):
+        raise RuntimeError("the eval on the card disagrees with the CPU")
+    return dict(frames=result["frames"],
+                miou=result["miou"], localization_acc=result["localization_acc"],
+                eval_s=eval_s, render_s=render_s, render_launches=render_launches,
+                eval_launches=eval_launches, relevancy_err=rel_err, flipped=flipped,
+                iou_err=iou_err, frame0_cpu_s=cpu["seconds"])
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -936,6 +1212,15 @@ def main() -> int:
         train_timings["B"] = training_checks_and_timings(
             "B", result_b, train_cam, pipe, device, torch.as_tensor(gt_feat).to(device),
             torch.as_tensor(gt_mask).to(device))
+        del result_b
+
+        # 8 + 9. the autoencoder, then the eval on phase 3's field
+        t0 = time.perf_counter()
+        ae = autoencoder_phase(tmp, args.seed, device)
+        t1 = time.perf_counter()
+        evaluation = eval_phase(tmp, args.seed, device, model_dir, scene_dir, ae)
+        log(f"phases 8-9: {t1 - t0:.1f} s + {time.perf_counter() - t1:.1f} s, inputs, "
+            f"checks and timings included")
     for ph in ("A", "B"):
         for key, err in train_timings[ph]["errors"].items():
             errors[key] = max(errors[key], err)
@@ -991,6 +1276,7 @@ def main() -> int:
     ]
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))
+    log("phase 9: " + json.dumps(evaluation))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

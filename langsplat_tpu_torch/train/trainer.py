@@ -70,6 +70,24 @@ def merge_params(field: GaussianField, params: dict) -> GaussianField:
     return replace(field, **{FIELD_OF[k]: v for k, v in params.items()})
 
 
+def adam_direction(grads, mu, nu, count: torch.Tensor, eps: float):
+    """optax.scale_by_adam (b1 0.9, b2 0.999, `eps` outside the square root) on lists of
+    tensors that share one update count, in optax's float32 operations and order, as
+    multi-tensor (foreach) operations. Returns (mu, nu, count, direction): the new
+    moments and count, and each tensor's update before the learning rate's -lr scale.
+    The inputs are left as they were."""
+    mu = torch._foreach_add(torch._foreach_mul(grads, 1 - B1), torch._foreach_mul(mu, B1))
+    nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - B2),
+                            torch._foreach_mul(nu, B2))
+    count = count + 1
+    c = count.to(torch.float32)
+    mu_hat = torch._foreach_div(mu, 1 - torch.pow(B1, c))
+    nu_hat = torch._foreach_div(nu, 1 - torch.pow(B2, c))
+    direction = torch._foreach_div(mu_hat,
+                                   torch._foreach_add(torch._foreach_sqrt(nu_hat), eps))
+    return mu, nu, count, direction
+
+
 class Adam:
     """Adam per parameter group, as the JAX package's optax multi_transform: a constant
     learning rate per group, or, for xyz, -schedule(count) with the schedule's own
@@ -95,14 +113,9 @@ class Adam:
         """(new params, new state); the inputs are left as they were."""
         new_params, new_state = dict(params), {}
         for label in self.labels:
-            g, s = grads[label], state[label]
-            mu = (1 - B1) * g + B1 * s["mu"]
-            nu = (1 - B2) * (g * g) + B2 * s["nu"]
-            count = s["count"] + 1
-            c = count.to(torch.float32)
-            mu_hat = mu / (1 - torch.tensor(B1, dtype=torch.float32, device=c.device) ** c)
-            nu_hat = nu / (1 - torch.tensor(B2, dtype=torch.float32, device=c.device) ** c)
-            step = mu_hat / (torch.sqrt(nu_hat) + EPS)
+            s = state[label]
+            (mu,), (nu,), count, (step,) = adam_direction(
+                [grads[label]], [s["mu"]], [s["nu"]], s["count"], EPS)
             ns = dict(count=count, mu=mu, nu=nu)
             if label in self.schedules:
                 rate = -self.schedules[label](s["sched_count"]).to(step.device)
