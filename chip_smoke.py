@@ -63,8 +63,22 @@ Phases (any failure ends the run with a non-zero exit):
      (`iou_loc.eval_frame`, the CLI's per-frame path) on the card and on the CPU: the
      [L, P, H, W] relevancy maps within 1e-5, the masks' flipped share, chosen levels
      and IoUs held as stated at EVAL_FLIP_TOL.
+  10. the language-feature preprocessing (`process.sh` step 1, no hand-written kernel
+     on this path) with stand-ins for SAM and CLIP (`StandInPredictor`,
+     `StandInEncoder`; the CPU tests use the same definitions): PNG views painted from
+     --seed, `pipeline.load_scene_images` (and a 1920x1440 view cut to 1440x1080, bit
+     for bit against the CPU), `AutoMaskGenerator` with the preprocessing CLI's
+     configuration and `pipeline.create` on the card into `language_features/`; per
+     view the masks per level before and after `masks_update`, the NMS matrix's bytes,
+     each stage's ms and the device's idle share; view 0 against the port on the CPU
+     (records, tiles and seg maps equal, `_s.npy` bit-equal, `_f.npy` within one
+     float16 unit); then the AE train and test CLIs on those files and phase B's
+     loader (`Camera.get_language_feature`) on view 0; 10b: `transformers`' SAM at
+     the sam-vit-huge widths and CLIP at the ViT-B/16 widths with random weights from
+     --seed, loaded through the port's backends, one predictor call (64 points at
+     1024x768) and 64 tiles encoded, timed.
 The launch counters are zeroed before, and read after, each path (phases 3, 5 A and B,
-8, and 9's render and eval). The line before the last is the `kernels` JSON; the last
+8, 9's render and eval, and 10). The line before the last is the `kernels` JSON; the last
 line is the result JSON.
 It needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -421,14 +435,21 @@ def host_ms(fn, reps: int, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def profile_render(fn, reps: int = 3) -> dict:
-    """Device time by kernel over `reps` calls of `fn` (a render or a training step;
-    torch.profiler), and the share of the window's wall time in which the device ran no
-    kernel."""
+def profile_render(fn, reps: int = 3, warmup: bool = True, host_events: bool = True
+                   ) -> dict:
+    """Device time by kernel over `reps` calls of `fn` (a render, a training step or a
+    view's preprocessing; torch.profiler), after one call outside the window unless
+    `warmup` is false, and the share of the window's wall time in which the device ran
+    no kernel. Without `host_events` only the device is traced (a view's preprocessing
+    makes ~10^5 host operator events, whose processing would cost more than the view)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_events:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1017,6 +1038,453 @@ def eval_phase(tmp: str, seed: int, device, model_dir: str, scene_dir: str,
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the language-feature preprocessing, with stand-ins for SAM and CLIP
+# ---------------------------------------------------------------------------
+
+PRE_VIEWS = 3               # 1024x768 views through the generator
+PRE_BIG = (1920, 1440)      # one more view that load_scene_images cuts to 1440x1080
+PRE_CELLS = (12, 10)        # the scene's jittered grid: one object in ~90% of the cells
+
+
+def paint_scene(seed: int, width: int, height: int, cells=PRE_CELLS) -> np.ndarray:
+    """[H, W, 3] uint8 RGB: an ellipse in ~90% of the cells of a jittered grid, each cut
+    into 2-4 sectors (parts); R is the object id (1..), G is 40 x the part (1..4), B
+    the group (the 2x2 block of cells the object lies in), (0, 0, 0) the background. A
+    seeded 30% of the objects carry a hole and an island of ~28 px (under the 100 px of
+    `remove_small_regions`)."""
+    rng = np.random.default_rng(seed)
+    nx, ny = cells
+    cell_w, cell_h = width / nx, height / ny
+    img = np.zeros((height, width, 3), np.uint8)
+    obj = 0
+    for j in range(ny):
+        for i in range(nx):
+            if rng.random() < 0.1:
+                continue
+            obj += 1
+            cx = (i + rng.uniform(0.35, 0.65)) * cell_w
+            cy = (j + rng.uniform(0.35, 0.65)) * cell_h
+            a, b = rng.uniform(0.25, 0.45) * cell_w, rng.uniform(0.25, 0.45) * cell_h
+            th = rng.uniform(0, math.pi)
+            n_parts = int(rng.integers(2, 5))
+            group = (j // 2) * ((nx + 1) // 2) + i // 2 + 1
+            r = int(max(a, b)) + 8
+            y0, y1 = max(int(cy) - r, 0), min(int(cy) + r + 1, height)
+            x0, x1 = max(int(cx) - r, 0), min(int(cx) + r + 1, width)
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            dx, dy = xx - cx, yy - cy
+            u = (dx * math.cos(th) + dy * math.sin(th)) / a
+            v = (-dx * math.sin(th) + dy * math.cos(th)) / b
+            inside = u * u + v * v < 1
+            part = np.minimum((np.arctan2(v, u) + math.pi) / (2 * math.pi) * n_parts,
+                              n_parts - 1).astype(np.int64) + 1
+            colour = np.stack([np.full(part.shape, obj), 40 * part,
+                               np.full(part.shape, group)], -1)
+            win = img[y0:y1, x0:x1]
+            win[inside] = colour[inside]
+            if rng.random() < 0.3:
+                hx, hy = cx + 0.5 * a * math.cos(th), cy + 0.5 * a * math.sin(th)
+                win[(xx - hx) ** 2 + (yy - hy) ** 2 < 9] = 0
+                ix, iy = cx - (a + 5) * math.cos(th), cy - (a + 5) * math.sin(th)
+                win[((xx - ix) ** 2 + (yy - iy) ** 2 < 9) & ~inside] = (obj, 40, group)
+    return img
+
+
+class StandInPredictor:
+    """SAM stand-in for `paint_scene` images, a pure function of (crop, points) on
+    `device`: per point, the part, object and group masks under it as the three heads
+    (empty on the background). The logits are (2k - 25) / d, k the mask's pixel count
+    in the 5x5 window around a pixel and d in 3..15 per object: a soft band at the
+    edges, so the stability score varies by mask, and the same bits on any device. The
+    IoU predictions come from a seeded table in [0.6, 1) per object."""
+
+    def __init__(self, seed: int, device):
+        rng = np.random.default_rng(seed + 10)
+        self.device = torch.device(device)
+        self.iou = torch.as_tensor(rng.uniform(0.6, 1.0, (256, 3)).astype(np.float32),
+                                   device=self.device)
+        self.div = torch.as_tensor(rng.integers(3, 16, 256).astype(np.float32),
+                                   device=self.device)
+
+    def __call__(self, crop, points):
+        dev = self.device
+        img = torch.as_tensor(np.ascontiguousarray(crop), device=dev).long()
+        h, w = img.shape[:2]
+        obj = img[..., 0]
+        keys = torch.stack([obj * 5 + img[..., 1] // 40, obj, img[..., 2]]) * (obj > 0)
+        pts = torch.as_tensor(np.asarray(points), device=dev)
+        px = pts[:, 0].long().clamp(0, w - 1)
+        py = pts[:, 1].long().clamp(0, h - 1)
+        key = keys[:, py, px].T                                  # [P, 3]
+        n = len(key)
+        # k inside a window around each mask's bounding box (+2 px), 0 outside it
+        flat = keys.flatten(1)
+        table = torch.zeros((3, int(keys.max()) + 1), dtype=torch.long, device=dev)
+
+        def extent(v, reduce, init):
+            return table.fill_(init).scatter_reduce(1, flat, v.expand(3, -1),
+                                                    reduce).gather(1, key.T).T
+        ys = torch.arange(h, device=dev).repeat_interleave(w)
+        xs = torch.arange(w, device=dev).repeat(h)
+        y0, y1 = extent(ys, "amin", h), extent(ys, "amax", -1)
+        x0, x1 = extent(xs, "amin", w), extent(xs, "amax", -1)
+        on = key > 0                          # the background's mask is empty
+        win_h = min(int(torch.where(on, y1 - y0, 0).max()) + 5, h)
+        win_w = min(int(torch.where(on, x1 - x0, 0).max()) + 5, w)
+        oy = (y0 - 2).clamp(min=0).clamp(max=h - win_h)
+        ox = (x0 - 2).clamp(min=0).clamp(max=w - win_w)
+        rows = (oy[..., None] + torch.arange(win_h, device=dev))[..., :, None]
+        cols = (ox[..., None] + torch.arange(win_w, device=dev))[..., None, :]
+        heads = torch.arange(3, device=dev)[None, :, None, None]
+        win = (keys[heads, rows, cols] == key[:, :, None, None]) & on[:, :, None, None]
+        # the 5x5 box count, in integers
+        c = torch.nn.functional.pad(win.int(), (3, 2, 3, 2)).cumsum(3)
+        c = (c[..., 5:] - c[..., :-5]).cumsum(2)
+        k = c[:, :, 5:] - c[:, :, :-5]
+        d = self.div[key[:, 1]][:, None, None, None]
+        logits = (torch.full((n, 3, 1, 1), -25.0, device=dev) / d).expand(
+            n, 3, h, w).contiguous()
+        pi = torch.arange(n, device=dev)[:, None, None, None]
+        logits[pi, heads, rows, cols] = (2 * k - 25) / d
+        return logits > 0, self.iou[key[:, 1]], logits
+
+
+class StandInEncoder:
+    """CLIP image encoder stand-in: the tiles [M, 3, 224, 224] pooled to 3 x 8 x 8 and
+    projected to 512 dimensions by a seeded fixed matrix, on `device`."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        gen = torch.Generator().manual_seed(seed + 20)
+        self.proj = torch.randn((3 * 8 * 8, 512), generator=gen).to(self.device)
+
+    def __call__(self, tiles) -> torch.Tensor:
+        import torch.nn.functional as F
+        t = torch.as_tensor(tiles, dtype=torch.float32, device=self.device)
+        return F.avg_pool2d(t, 28).flatten(1) @ self.proj
+
+
+class StageTimer:
+    """Wraps callables so that each call adds its wall time, between two device
+    synchronizes, to a named stage (with `events`, CUDA events around the call
+    instead); `restore` puts back the attributes that `wrap` replaced."""
+
+    def __init__(self):
+        self.ms, self._undo = {}, []
+
+    def timed(self, fn, stage: str, events: bool = False):
+        def call(*args, **kwargs):
+            if events:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            self.ms[stage] = self.ms.get(stage, 0.0) + ms
+            return out
+        return call
+
+    def wrap(self, owner, name: str, stage: str, events: bool = False) -> None:
+        fn = getattr(owner, name)
+        setattr(owner, name, self.timed(fn, stage, events))
+        self._undo.append((owner, name, fn))
+
+    def restore(self) -> None:
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+        self._undo.clear()
+
+
+class Recorder:
+    """Keeps the outputs of wrapped callables per name until `restore`."""
+
+    def __init__(self):
+        self.out, self._undo = {}, []
+
+    def wrap(self, owner, name: str) -> None:
+        fn = getattr(owner, name)
+        sink = self.out.setdefault(name, [])
+
+        def call(*args, **kwargs):
+            res = fn(*args, **kwargs)
+            sink.append(res)
+            return res
+        setattr(owner, name, call)
+        self._undo.append((owner, name, fn))
+
+    def restore(self) -> None:
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+        self._undo.clear()
+
+
+def write_pre_scene(root: str, seed: int, views: int, size) -> None:
+    from PIL import Image
+    os.makedirs(os.path.join(root, "images"))
+    for v in range(views):
+        Image.fromarray(paint_scene(seed + 100 + v, *size, PRE_CELLS)).save(
+            os.path.join(root, "images", f"view_{v:03d}.png"))
+
+
+def same_records(a: list, b: list) -> bool:
+    """The generator's records equal, in order: masks, boxes, scores, points, crops."""
+    return len(a) == len(b) and all(
+        torch.equal(ra["segmentation"].cpu(), rb["segmentation"].cpu())
+        and np.array_equal(ra["bbox"], rb["bbox"])
+        and ra["predicted_iou"] == rb["predicted_iou"]
+        and ra["stability_score"] == rb["stability_score"]
+        and ra["point_coords"] == rb["point_coords"] and ra["crop_box"] == rb["crop_box"]
+        for ra, rb in zip(a, b))
+
+
+def recorded_create(name, image, out_dir, generator, encoder, timer=None) -> dict:
+    """`pipeline.create` of one view, keeping the generator's records, the levels
+    after `masks_update` and every (tiles, seg map); with `timer`, its stages timed."""
+    from langsplat_tpu_torch.preprocess import auto_mask, masks as pmasks, pipeline
+    rec = Recorder()
+    rec.wrap(generator, "generate")
+    rec.wrap(pipeline, "masks_update")
+    rec.wrap(pipeline, "mask_to_segmap")
+    labelled = [0]
+    remove = generator._remove_small_regions
+
+    def counted(segs):
+        labelled[0] += len(segs)
+        return remove(segs)
+    generator._remove_small_regions = counted
+    if timer is not None:
+        timer.wrap(generator, "predictor", "predictor")
+        timer.wrap(generator, "_filter_batch", "filters")
+        timer.wrap(generator, "_remove_small_regions", "remove_small_regions")
+        timer.wrap(auto_mask, "box_nms", "box_nms")
+        timer.wrap(pmasks, "mask_nms_matrices", "mask_nms_product", events=True)
+        timer.wrap(pipeline, "mask_to_segmap", "tiles")
+        timer.wrap(pipeline, "write_features", "file_writes")
+        encoder = timer.timed(encoder, "encoder")
+    t0 = time.perf_counter()
+    try:
+        pipeline.create([image], [name], out_dir, generator, encoder)
+        if generator.device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        if timer is not None:
+            timer.restore()
+        generator._remove_small_regions = remove
+        rec.restore()
+    return dict(seconds=time.perf_counter() - t0, records=rec.out["generate"][0],
+                updated=rec.out["masks_update"][0], segmaps=rec.out["mask_to_segmap"],
+                labelled=labelled[0])
+
+
+def float16_units(a: np.ndarray, b: np.ndarray) -> float:
+    """Largest |a - b| of two float16 arrays in units of the float16 spacing at the
+    larger magnitude."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    unit = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float16)).astype(np.float32)
+    return float((np.abs(a - b) / unit).max()) if a.size else 0.0
+
+
+def preprocess_phase(tmp: str, seed: int, device) -> dict:
+    """Phase 10: `process.sh` step 1 through the port (load_scene_images, the CLI's
+    AutoMaskGenerator, create) on the card with the stand-ins, checked against the port
+    on the CPU on view 0, then the AE CLIs and phase B's loader on its files."""
+    from langsplat_tpu_torch.cli import autoencoder_cli
+    from langsplat_tpu_torch.cli.preprocess_cli import auto_mask_config
+    from langsplat_tpu_torch.data.cameras import Camera
+    from langsplat_tpu_torch.preprocess import pipeline
+    from langsplat_tpu_torch.preprocess.auto_mask import AutoMaskGenerator
+
+    scene, big = os.path.join(tmp, "pre_scene"), os.path.join(tmp, "pre_big")
+    t0 = time.perf_counter()
+    write_pre_scene(scene, seed, PRE_VIEWS, (WIDTH, HEIGHT))
+    write_pre_scene(big, seed + 50, 1, PRE_BIG)
+    log(f"phase 10: wrote {PRE_VIEWS} PNG views at {WIDTH}x{HEIGHT} and one at "
+        f"{PRE_BIG[0]}x{PRE_BIG[1]} ({PRE_CELLS[0]}x{PRE_CELLS[1]} cells, objects of 2-4 "
+        f"parts in 2x2-cell groups) in {time.perf_counter() - t0:.1f} s")
+
+    # the downscale to 1080 rows, on the card against the CPU
+    down_ms = host_ms(lambda: pipeline.load_scene_images(big, device=device), reps=1)
+    big_card = pipeline.load_scene_images(big, device=device)[0][0]
+    big_cpu = pipeline.load_scene_images(big, device="cpu")[0][0]
+    down_equal = bool(np.array_equal(big_card, big_cpu))
+    log(f"phase 10: load_scene_images of the {PRE_BIG[0]}x{PRE_BIG[1]} PNG -> "
+        f"{big_card.shape[1]}x{big_card.shape[0]} in {down_ms:.1f} ms (PIL decode, the "
+        f"resize on the card); bit-equal to the CPU: {down_equal}")
+    if big_card.shape != (1080, PRE_BIG[0] * 1080 // PRE_BIG[1], 3) or not down_equal:
+        raise RuntimeError("the downscale to 1080 rows disagrees with the CPU")
+
+    t0 = time.perf_counter()
+    images, names = pipeline.load_scene_images(scene, device=device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    generator = AutoMaskGenerator(StandInPredictor(seed, device), auto_mask_config(),
+                                  device=device)
+    encoder = StandInEncoder(seed, device)
+    lf_dir = os.path.join(scene, "language_features")
+
+    # the main path: every view through create, its stages timed
+    zero_launches()
+    t0 = time.perf_counter()
+    views, card = [], None
+    for name, image in zip(names, images):
+        timer = StageTimer()
+        run = recorded_create(name, image, lf_dir, generator, encoder, timer)
+        before = [len(r) for r in run["records"]]
+        views.append(dict(
+            view=name, ms=run["seconds"] * 1e3, masks_labelled=run["labelled"],
+            masks_per_level_before=before,
+            masks_per_level_after=[len(r) for r in run["updated"]],
+            nms_matrix_bytes=[m * image.shape[0] * image.shape[1] * 4 for m in before],
+            stage_ms=timer.ms))
+        card = card or run
+    launches = dict(_build.LAUNCHES)
+    create_s = time.perf_counter() - t0
+    if launches != {k: 0 for k in launches}:
+        raise RuntimeError(f"a blend or segment-sum kernel ran on this path: {launches}")
+    # the device's idle share over each view: create again under torch.profiler
+    t0 = time.perf_counter()
+    prof_dir = os.path.join(tmp, "pre_profiled")
+    for view, name, image in zip(views, names, images):
+        prof = profile_render(lambda: pipeline.create([image], [name], prof_dir, generator,
+                                                      encoder), reps=1, warmup=False,
+                              host_events=False)
+        view.update(profiled_ms=prof["wall_ms_per_call"],
+                    device_ms=prof["device_ms_per_call"],
+                    device_idle_share=prof["device_idle_share"])
+        log(f"phase 10: {json.dumps(view)}")
+    profiled_s = time.perf_counter() - t0
+    log(f"phase 10: create on the card, {PRE_VIEWS} views in {create_s:.1f} s with the "
+        f"stage timers, again in {profiled_s:.1f} s under torch.profiler; launches "
+        f"{launches} (no hand-written kernel on this path)")
+    t0 = time.perf_counter()
+
+    # view 0: the card against the port on the CPU (the stand-ins give the same bits
+    # on both)
+    cpu_gen = AutoMaskGenerator(StandInPredictor(seed, "cpu"), auto_mask_config(),
+                                device="cpu")
+    cpu_dir = os.path.join(tmp, "pre_cpu")
+    cpu = recorded_create(names[0], images[0], cpu_dir, cpu_gen, StandInEncoder(seed, "cpu"))
+    records_equal = all(same_records(a, b) for a, b in zip(card["records"], cpu["records"]))
+    tiles_equal = len(card["segmaps"]) == len(cpu["segmaps"]) and all(
+        torch.equal(a.cpu(), b) and torch.equal(sa.cpu(), sb)
+        for (a, sa), (b, sb) in zip(card["segmaps"], cpu["segmaps"]))
+    base = os.path.splitext(names[0])[0]
+    s_equal = np.array_equal(np.load(os.path.join(lf_dir, base + "_s.npy")),
+                             np.load(os.path.join(cpu_dir, base + "_s.npy")))
+    f_card = np.load(os.path.join(lf_dir, base + "_f.npy"))
+    f_cpu = np.load(os.path.join(cpu_dir, base + "_f.npy"))
+    f_units = float16_units(f_card, f_cpu) if f_card.shape == f_cpu.shape else math.inf
+    cpu_s = cpu["seconds"]
+    check_s = time.perf_counter() - t0
+    log(f"phase 10: view 0 on the card vs the CPU ({cpu_s:.1f} s there, {check_s:.1f} s "
+        f"with the comparisons): "
+        f"records equal {records_equal} ({[len(r) for r in cpu['records']]} per level), "
+        f"tiles and seg maps bit-equal {tiles_equal}, _s.npy bit-equal {s_equal}, _f.npy "
+        f"{list(f_card.shape)} within {f_units:.1f} float16 units (tol 1)")
+    if not (records_equal and tiles_equal and s_equal and f_units <= 1):
+        raise RuntimeError("the preprocessing on the card disagrees with the CPU")
+    del card, cpu
+
+    # the files through the AE CLIs and phase B's loader
+    common = ["--dataset_path", scene, "--dataset_name", "pre", "--ckpt_root",
+              os.path.join(tmp, "pre_ckpt")]
+    t0 = time.perf_counter()
+    train = autoencoder_cli.train_main(common + ["--num_epochs", "1", "--eval_from_frac",
+                                                 "0", "--seed", str(seed)])
+    autoencoder_cli.test_main(common)
+    ae_s = time.perf_counter() - t0
+    cam = Camera(uid=0, colmap_id=0, R=np.eye(3), T=np.zeros(3), fov_x=FOV_X,
+                 fov_y=FOV_X * HEIGHT / WIDTH, image=None, image_name=base, width=WIDTH,
+                 height=HEIGHT)
+    feat, mask = cam.get_language_feature(os.path.join(scene, "language_features_dim3"), 1)
+    covered = float(mask.mean())
+    log(f"phase 10: AE train (1 epoch, {train['steps_per_epoch']} steps) + test CLIs on "
+        f"the {f_card.shape[0]}-row view-0 table and the others in {ae_s:.1f} s; phase B's "
+        f"loader on view 0, level 1: features {list(feat.shape)}, {covered:.3f} of the "
+        f"pixels covered")
+    if feat.shape != (3, HEIGHT, WIDTH) or not np.isfinite(feat).all() or covered <= 0:
+        raise RuntimeError("phase B's loader did not read the preprocessing's files")
+    return dict(views=views, load_ms=load_ms, create_s=create_s, profiled_s=profiled_s,
+                down_ms=down_ms, cpu_view0_s=cpu_s, check_s=check_s, f_units=f_units,
+                ae_s=ae_s, level1_covered=covered)
+
+
+# Phase 10b: SAM ViT-H and CLIP ViT-B/16 at their published widths, random weights
+SAM_VIT_HUGE = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=16,
+                    mlp_dim=5120, global_attn_indexes=[7, 15, 23, 31], window_size=14,
+                    patch_size=16, image_size=1024, output_channels=256)
+CLIP_VIT_B16 = dict(
+    text_config=dict(hidden_size=512, intermediate_size=2048, num_hidden_layers=12,
+                     num_attention_heads=8),
+    vision_config=dict(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                       num_attention_heads=12, patch_size=16, image_size=224),
+    projection_dim=512)
+
+
+def published_widths_phase(tmp: str, seed: int, device) -> dict:
+    """Phase 10b: `transformers`' SamModel at the sam-vit-huge widths and CLIPModel at
+    the ViT-B/16 widths, random weights from --seed, written to a local directory and
+    loaded through the port's backends; one predictor call (64 points on a 1024x768
+    view) and the encoding of 64 tiles, timed. With random weights the masks and
+    embeddings mean nothing: only shapes, finiteness and times are read."""
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")      # local directories only
+    import transformers
+    from langsplat_tpu_torch.preprocess.auto_mask import build_point_grid
+    from langsplat_tpu_torch.preprocess.backends import (TransformersClipImageEncoder,
+                                                         TransformersSamPredictor)
+
+    t0 = time.perf_counter()
+    sam_dir, clip_dir = os.path.join(tmp, "sam_vit_huge"), os.path.join(tmp, "clip_b16")
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = transformers.SamModel(transformers.SamConfig(vision_config=SAM_VIT_HUGE))
+        sam_params = sum(p.numel() for p in model.parameters())
+        model.save_pretrained(sam_dir)
+        del model
+        model = transformers.CLIPModel(transformers.CLIPConfig(**CLIP_VIT_B16))
+        clip_params = sum(p.numel() for p in model.parameters())
+        model.save_pretrained(clip_dir)
+        del model
+    transformers.SamProcessor(transformers.SamImageProcessor()).save_pretrained(sam_dir)
+    predictor = TransformersSamPredictor(sam_dir, device=device)
+    encoder = TransformersClipImageEncoder(clip_dir, device=device)
+    setup_s = time.perf_counter() - t0
+
+    image = paint_scene(seed + 7, WIDTH, HEIGHT)
+    points = build_point_grid(32)[:64] * np.array([WIDTH, HEIGHT])
+    masks, ious, logits = predictor(image, points)
+    predictor_ms = host_ms(lambda: predictor(image, points), reps=3)
+    tiles = torch.rand((64, 3, 224, 224), device=device,
+                       generator=torch.Generator(device).manual_seed(seed))
+    embeds = encoder(tiles)
+    encoder_ms = cuda_ms(lambda: encoder(tiles), reps=5)
+    ok = (masks.shape == (64, 3, HEIGHT, WIDTH) and tuple(ious.shape) == (64, 3)
+          and bool(torch.isfinite(logits).all()) and tuple(embeds.shape) == (64, 512)
+          and bool(torch.isfinite(embeds).all()))
+    result = dict(sam_params=sam_params, clip_params=clip_params, setup_s=setup_s,
+                  predictor_ms=predictor_ms, encoder_64_tiles_ms=encoder_ms,
+                  transformers=transformers.__version__)
+    log(f"phase 10b: SamModel at sam-vit-huge widths ({sam_params / 1e6:.0f}M parameters) "
+        f"and CLIPModel at ViT-B/16 widths ({clip_params / 1e6:.0f}M), random weights, "
+        f"written and loaded through the port's backends in {setup_s:.1f} s "
+        f"(transformers {transformers.__version__}); one predictor call (64 points, "
+        f"{WIDTH}x{HEIGHT}, SAM's image encoder included, host clock) {predictor_ms:.1f} "
+        f"ms; 64 tiles through the CLIP image encoder {encoder_ms:.2f} ms (CUDA events); "
+        f"outputs of the expected shapes and finite: {ok} (random weights: the masks and "
+        f"embeddings mean nothing)")
+    if not ok:
+        raise RuntimeError("the transformers backends gave outputs of the wrong shape")
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1221,6 +1689,15 @@ def main() -> int:
         evaluation = eval_phase(tmp, args.seed, device, model_dir, scene_dir, ae)
         log(f"phases 8-9: {t1 - t0:.1f} s + {time.perf_counter() - t1:.1f} s, inputs, "
             f"checks and timings included")
+
+        # 10. the language-feature preprocessing
+        t0 = time.perf_counter()
+        preprocessing = preprocess_phase(tmp, args.seed, device)
+        log(f"phase 10: {time.perf_counter() - t0:.1f} s, inputs, checks and timings "
+            f"included")
+        t0 = time.perf_counter()
+        preprocessing["published_widths"] = published_widths_phase(tmp, args.seed, device)
+        log(f"phase 10b: {time.perf_counter() - t0:.1f} s")
     for ph in ("A", "B"):
         for key, err in train_timings[ph]["errors"].items():
             errors[key] = max(errors[key], err)
@@ -1277,6 +1754,7 @@ def main() -> int:
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))
     log("phase 9: " + json.dumps(evaluation))
+    log("phase 10: " + json.dumps(preprocessing))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

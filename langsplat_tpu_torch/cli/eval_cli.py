@@ -11,9 +11,10 @@ autoencoder checkpoint (`<ae_ckpt_dir>/<dataset>/best_ckpt.npz`, else
 `.../<dataset>/ae_ckpt/best_ckpt.npz`) and the labelme GT of
 `<json_folder>/<dataset>`; decodes, scores the prompts and reports mIoU and
 localization accuracy, logging to `<output_dir>/<dataset>/<timestamp>.log`. The prompt
-embeddings come from --text_embeddings: the CLIP text encoder (--clip_model) is not in
-the port until the preprocessing and CLIP weights are (ROADMAP item 7). It runs on the
-CUDA card unless --device says otherwise, and fails without a card.
+embeddings come from --text_embeddings when it is given, else from the CLIP text
+encoder loaded from --clip_model (a local checkpoint directory; default
+`evaluation.clip_text.DEFAULT_MODEL`), as in the JAX CLI. It runs on the CUDA card
+unless --device says otherwise, and fails without a card.
 """
 
 from __future__ import annotations
@@ -52,10 +53,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--decoder_dims", nargs="+", type=int,
                         default=[16, 32, 64, 128, 256, 256, 512])
     parser.add_argument("--clip_model", type=str, default=None,
-                        help="CLIP weights: refused, the port has no CLIP text encoder "
-                             "until ROADMAP item 7")
+                        help="local CLIP checkpoint directory of the text encoder "
+                             "(default: clip_text.DEFAULT_MODEL); unused with "
+                             "--text_embeddings")
     parser.add_argument("--text_embeddings", type=str, default=None,
-                        help="npz of precomputed prompt embeddings")
+                        help="npz of precomputed prompt embeddings (wins over "
+                             "--clip_model)")
     parser.add_argument("--iteration", type=str, default="None",
                         help="render iteration in the feat dir layout")
     parser.add_argument("--no_vis", action="store_true",
@@ -64,20 +67,19 @@ def main(argv=None) -> dict:
                         help="torch device (default: the CUDA card; 'cpu' to run on the "
                              "CPU)")
     args = parser.parse_args(argv)
-    no_clip = ("the port has no CLIP text encoder until the preprocessing and CLIP "
-               "weights are ported (ROADMAP item 7)")
-    if args.clip_model is not None:
-        parser.error(f"--clip_model is refused: {no_clip}; pass --text_embeddings")
-    if not args.text_embeddings:
-        parser.error(f"--text_embeddings is required: {no_clip}")
 
     from langsplat_tpu_torch.cli.autoencoder_cli import load_ae_checkpoint
     from langsplat_tpu_torch.device import float32_matmul_highest, resolve_device
-    from langsplat_tpu_torch.evaluation.clip_text import PrecomputedTextEncoder
+    from langsplat_tpu_torch.evaluation import clip_text
     from langsplat_tpu_torch.evaluation.iou_loc import evaluate
 
     device = resolve_device(args.device)
     float32_matmul_highest()
+    if args.text_embeddings:
+        encode_text = clip_text.PrecomputedTextEncoder(args.text_embeddings)
+    else:
+        encode_text = clip_text.ClipTextEncoder(
+            args.clip_model or clip_text.DEFAULT_MODEL, device=device)
     feat_dirs = [os.path.join(args.feat_dir, f"{args.dataset_name}_{i}",
                               "train", f"ours_{args.iteration}", "renders_npy")
                  for i in range(1, 4)]
@@ -101,8 +103,7 @@ def main(argv=None) -> dict:
 
     model = load_ae_checkpoint(ae_ckpt, args.encoder_dims, args.decoder_dims).to(device)
     try:
-        return evaluate(feat_dirs, json_folder, make_decoder(model),
-                        PrecomputedTextEncoder(args.text_embeddings),
+        return evaluate(feat_dirs, json_folder, make_decoder(model), encode_text,
                         mask_thresh=args.mask_thresh, logger=logger.info,
                         output_path=None if args.no_vis else output_path, device=device)
     finally:

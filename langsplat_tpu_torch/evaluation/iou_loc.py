@@ -10,9 +10,10 @@ filter's argmax inside a GT box.
 The decoder, relevancy, filters, masks and IoU run as tensors on the caller's device
 (the card, from the eval CLI); the GT parsing and the PNG writers stay on the host.
 Neither OpenCV nor matplotlib is needed on this path:
-  - `polygon_to_mask` fills as `cv2.fillPoly(mask, [int32 points], 1)` does (its
-    8-connected outline plus a scanline fill whose spans take the pixels from
-    floor(xl + 1/2) to ceil(xr + 1/2) - 1, in exact integer arithmetic);
+  - `polygon_to_mask` fills as `cv2.fillPoly(mask, [int32 points], 1)` does, bit for
+    bit (its 8-connected outline plus a scanline fill whose spans take the pixels from
+    floor(xl + 1/2) to ceil(xr + 1/2) - 1, in exact integer arithmetic, with OpenCV's
+    clipped edges and their outside parts projected onto the border);
   - `mean_filter_30` is `cv2.filter2D` with a 30x30 box (anchor 15: offsets -15..+14)
     and a reflect-101 border, summed in float64 and rounded to float32 (cv2 runs a
     kernel this size through a DFT: the two agree to ~1e-7, not bit for bit);
@@ -107,29 +108,43 @@ def _draw_line(mask: np.ndarray, x1: int, y1: int, x2: int, y2: int) -> None:
 
 def polygon_to_mask(img_shape, points_list) -> np.ndarray:
     """uint8 [H, W] mask of a labelme polygon, as `cv2.fillPoly(mask, [np.int32
-    points], 1)` draws it: the points truncated to int32, the closed 8-connected outline,
-    and an even-odd scanline fill. Each edge runs over rows [min y, max y), its x at row
-    y taken at the pixel centre (x + 1/2); a span between the k-th and (k+1)-th edge
-    crossings (k even) covers the pixels floor(xl) .. ceil(xr) - 1. An edge with an end
-    outside the image takes its line from its clipped ends (`_clip_line`), as OpenCV
-    does. Equal to OpenCV 5.0's fill bit for bit on polygons inside the image; where a
-    polygon leaves it, OpenCV also fills some pixels of the first or last row or column
-    that this fill leaves out (or the other way round), fewer than 1% of the mask in
-    the tests."""
+    points], 1)` draws it in OpenCV 5.0, bit for bit: the points truncated to int32, the
+    closed 8-connected outline, and an even-odd scanline fill. Each edge runs over rows
+    [min y, max y); at row y it stands at u = x + 1/2 on its line, and a span between
+    the k-th and (k+1)-th crossing (k even) covers the pixels floor(u_l) ..
+    ceil(u_r) - 1, clipped to the image, in exact integer arithmetic.
+
+    An edge with an end outside the image takes its line from OpenCV's `clipLine`
+    (`_clip_line`, integer ends t0, t1):
+      - when the clipped ends share a row, the line through (t0.x, y0) and (t1.x, y1);
+      - when clipLine fails, the line through the ends it returns;
+      - otherwise the line through t0 and t1, and on the rows beyond a clipped end, on
+        the side of an original end that lies left of the image (x < 0) or right of it
+        (x > W - 1), the edge is projected onto that border: u = 0 or u = W.
+    """
     h, w = img_shape[:2]
     pts = [(int(x), int(y)) for x, y in np.asarray(points_list, dtype=np.int32)]
     mask = np.zeros((h, w), np.uint8)
-    edges = []           # (first row, last row + 1, ax, ay, bx, by): the edge's line
+    # per edge: first row, last row + 1, its line (ax, ay, bx, by), and the projection
+    # above row `top` onto u = u_top and below row `bottom` onto u = u_bottom (-1: none)
+    edges = []
     x0, y0 = pts[-1]
     for x1, y1 in pts:
         _draw_line(mask, x0, y0, x1, y1)
         if y0 != y1:
-            line = (x0, y0, x1, y1)
+            line, proj = (x0, y0, x1, y1), (y0, -1, y1, -1)
             if not _inside(w, h, x0, y0, x1, y1):
-                _, cx0, cy0, cx1, cy1 = _clip_line(w, h, x0, y0, x1, y1)
-                if cy0 != cy1:
+                clipped, cx0, cy0, cx1, cy1 = _clip_line(w, h, x0, y0, x1, y1)
+                if cy0 == cy1:
+                    line = (cx0, y0, cx1, y1)
+                else:
                     line = (cx0, cy0, cx1, cy1)
-            edges.append((min(y0, y1), max(y0, y1)) + line)
+                    if clipped:
+                        ends = [(cy0, _border(w, x0)), (cy1, _border(w, x1))]
+                        if y1 < y0:
+                            ends.reverse()
+                        proj = ends[0] + ends[1]
+            edges.append((min(y0, y1), max(y0, y1)) + line + proj)
         x0, y0 = x1, y1
     if len(edges) < 2:
         return mask
@@ -138,14 +153,18 @@ def polygon_to_mask(img_shape, points_list) -> np.ndarray:
     flip = e[:, 5] < e[:, 3]             # orient every line downwards
     ax, ay = np.where(flip, e[:, 4], e[:, 2]), np.where(flip, e[:, 5], e[:, 3])
     bx, by = np.where(flip, e[:, 2], e[:, 4]), np.where(flip, e[:, 3], e[:, 5])
+    top, u_top, bottom, u_bottom = e[:, 6], e[:, 7], e[:, 8], e[:, 9]
     for y in range(max(int(lo.min()), 0), min(int(hi.max()), h)):
         act = (lo <= y) & (y < hi)
         if act.sum() < 2:
             continue
-        # x + 1/2 at row y = num / den, exactly
+        # u = x + 1/2 at row y = num / den, exactly
         den = 2 * (by[act] - ay[act])
         num = ((2 * ax[act] + 1) * (by[act] - ay[act])
                + 2 * (y - ay[act]) * (bx[act] - ax[act]))
+        for cut, u in ((y < top[act]) & (u_top[act] >= 0), u_top[act]), \
+                      ((y > bottom[act]) & (u_bottom[act] >= 0), u_bottom[act]):
+            num = np.where(cut, u * den, num)
         order = np.argsort(num / den, kind="stable")
         num, den = num[order], den[order]
         k = len(num) // 2
@@ -155,6 +174,12 @@ def polygon_to_mask(img_shape, points_list) -> np.ndarray:
             if xl < w and xr >= 0:
                 mask[y, max(xl, 0):min(xr, w - 1) + 1] = 1
     return mask
+
+
+def _border(w: int, x: int) -> int:
+    """The border an outside end projects onto: u = 0 left of the image, u = W right of
+    it, -1 (none) for an end whose column is inside."""
+    return 0 if x < 0 else w if x > w - 1 else -1
 
 
 def stack_mask(mask_base, mask_add):

@@ -79,3 +79,32 @@ def test_render_full_needs_a_card_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render_full(None, None, PipelineConfig(), 3, False, [0.0, 0.0, 0.0], device=None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_preprocessing_imports_neither_opencv_nor_matplotlib():
+    """The preprocessing (SAM masks, NMS, tiles, files), its CLIP backends and CLI, and
+    the CLIP text encoder: no import of cv2 or matplotlib anywhere in the modules (the
+    eval imports matplotlib only to draw its localization PNGs; the subprocess tests
+    run both CLIs under an importer that refuses both)."""
+    files = (sorted((PORT / "preprocess").glob("*.py"))
+             + [PORT / "cli" / "preprocess_cli.py", PORT / "evaluation" / "clip_text.py"])
+    assert len(files) == 7
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in imported_modules(f)
+           if m.split(".")[0] in ("cv2", "matplotlib")]
+    assert bad == []
+
+
+def test_preprocessing_entry_points_need_a_card_unless_asked(monkeypatch, tmp_path):
+    from langsplat_tpu_torch.evaluation.clip_text import ClipTextEncoder
+    from langsplat_tpu_torch.preprocess import backends
+    from langsplat_tpu_torch.preprocess.auto_mask import AutoMaskGenerator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    unused = str(tmp_path)          # a local directory: nothing is ever fetched
+    for make in (lambda: AutoMaskGenerator(lambda image, points: None),
+                 lambda: backends.TransformersSamPredictor(unused),
+                 lambda: backends.TransformersClipImageEncoder(unused),
+                 lambda: ClipTextEncoder(unused)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert AutoMaskGenerator(None, device="cpu").device == torch.device("cpu")
