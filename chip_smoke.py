@@ -77,9 +77,26 @@ Phases (any failure ends the run with a non-zero exit):
      the sam-vit-huge widths and CLIP at the ViT-B/16 widths with random weights from
      --seed, loaded through the port's backends, one predictor call (64 points at
      1024x768) and 64 tiles encoded, timed.
+  11. the rest of the single-device surface, on phase 5's scene and phase 3's field:
+     (a) the train CLI with a torch.profiler trace window, phase A 10 steps (iterations
+     6-8 traced) and phase B 4 steps from phase 5's checkpoint (iterations 2-3 traced,
+     so neither window holds the last step's PLY save): the trace must hold K1, K2 and
+     K3 launches in the counts the launch counters moved by inside the window; the ten
+     device ops with the most time per step and the device's busy ms per step; (b)
+     `training()` with the viewer bridge: a viewer thread holds iteration 1 for 3
+     frames at 1024x768 through view 0's camera, then releases it; each frame
+     byte-equal to the uint8 K1 render of the field that scene creation gives; ms per
+     frame; (c) the native
+     language-feature loader against numpy at 1024x768 (median of 10, bit-equal) and
+     the prefetcher's wait in each of phase 5's phase-B steps, every load native; (d)
+     view 0 of phase 3's field through the tiled backend (--interpret, at most 1024
+     instances a tile) against K1 on every untruncated tile (2e-4), and the tiled
+     backward on a small scene, bit-equal over two runs, through K3, within 5e-5 of
+     the plain blend's gradients on the CPU; (e) the LPIPS arithmetic on AlexNet-shaped
+     layer features of a 1024x768 pair, card against CPU (1e-6).
 The launch counters are zeroed before, and read after, each path (phases 3, 5 A and B,
-8, 9's render and eval, and 10). The line before the last is the `kernels` JSON; the last
-line is the result JSON.
+8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward). The line
+before the last is the `kernels` JSON; the last line is the result JSON.
 It needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -352,20 +369,7 @@ def small_comparisons(device) -> dict:
     worst = dict(blend_fwd=0.0, blend_bwd=0.0, blend_bwd_abs=0.0, segsum=0.0,
                  segsum_abs=0.0)
     for n, w, h, seed in ((2000, 77, 53, 1), (20000, 333, 211, 2)):
-        rng = np.random.default_rng(seed)
-        g = {k: torch.tensor(v, device=device) for k, v in bench_gaussians(n, rng).items()}
-        g["scales"] = g["scales"] * 8.0      # fewer, larger splats on a small image
-        view = transforms.world_to_view(np.eye(3), np.zeros(3)).T
-        proj = view @ transforms.projection_matrix(0.01, 100.0, FOV_X, FOV_X * h / w).T
-        tan_x, tan_y = math.tan(FOV_X / 2), math.tan(FOV_X * h / w / 2)
-        prep = projection.preprocess(
-            g["means"], g["scales"], g["quats"], None, torch.tensor(view, device=device),
-            torch.tensor(proj, device=device),
-            torch.tensor(np.linalg.inv(view)[3, :3], device=device),
-            image_height=h, image_width=w, tanfovx=tan_x, tanfovy=tan_y, sh_degree=0,
-            tile_size=TILE, colors_precomp=torch.rand((n, 3), device=device))
-        inst = tiles.bin_gaussians(prep, grid_x=-(-w // TILE), grid_y=-(-h // TILE),
-                                   budget=64 * n, tile_size=TILE, opacities=g["opac"])
+        g, prep, inst = small_scene(n, w, h, seed, device)
         target = torch.rand((3, h, w), device=device)
         mask = (torch.rand((1, h, w), device=device) < 0.8).float()
         for num_feat in (0, 3):
@@ -1485,6 +1489,398 @@ def published_widths_phase(tmp: str, seed: int, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the rest of the single-device surface: the profiler trace window, the
+# viewer bridge, the native feature loader, the tiled backend, the LPIPS arithmetic
+# ---------------------------------------------------------------------------
+
+# trace windows of the train CLI: phase A 10 steps (of 30,000), iterations 6-8 traced;
+# phase B 4 steps, iterations 2-3 traced. Each window closes before the last step, whose
+# PLY save (the CLI always saves the last iteration) would otherwise fill the trace.
+TRACE_RUNS = {"A": dict(steps=10, first=6, window=3, traced=(6, 9)),
+              "B": dict(steps=4, first=2, window=2, traced=(2, 4))}
+# the hand-written kernels' symbols in a trace
+KERNEL_SYMBOLS = {"blend_fwd": "blend_fwd_kernel", "blend_bwd": "blend_bwd_kernel",
+                  "segsum": "segsum_kernel"}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+GUI_FRAMES = 3              # frames the viewer holds iteration 1 for, then it releases
+LOADER_REPS = 10
+MAX_PER_TILE = 1024
+TILED_TOL = 2e-4            # the tiled image against K1's, on untruncated tiles
+TILED_GRAD_TOL = 5e-5       # the tiled backward on the card against the plain one (CPU)
+LPIPS_TOL = 1e-6            # the LPIPS arithmetic, card against the CPU
+# AlexNet's LPIPS layers (relu1 .. relu5) for a 1024x768 input: channels, height, width
+ALEX_LAYERS = ((64, 191, 255), (192, 95, 127), (384, 47, 63), (256, 47, 63),
+               (256, 47, 63))
+
+
+def read_trace(trace: dict) -> dict:
+    """The device side of a training trace window (`training`'s trace record): each
+    hand-written kernel's launches in the trace, the ten device ops with the most time
+    per step, and the device's busy ms per step (the union of its ops' intervals)."""
+    with open(trace["path"]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    if not events:
+        raise RuntimeError(f"the trace {trace['path']} holds no device op")
+    steps = trace["iterations"][1] - trace["iterations"][0]
+    in_trace = {k: sum(1 for e in events if sym in e["name"])
+                for k, sym in KERNEL_SYMBOLS.items()}
+    totals: dict[str, list] = {}
+    for e in events:
+        acc = totals.setdefault(e["name"][:100], [0.0, 0])
+        acc[0] += e["dur"]
+        acc[1] += 1
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:10]
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return dict(steps=steps, device_ops=len(events), launches_in_trace=in_trace,
+                device_busy_ms_per_step=busy / steps / 1e3,
+                top_device_ops=[dict(name=n, ms_per_step=t / steps / 1e3,
+                                     calls_per_step=c / steps) for n, (t, c) in top])
+
+
+def trace_phase(tmp: str, train_scene: str, run_prefix: str) -> dict:
+    """11a: the train CLI with a trace window, phase A from the SfM points and phase B
+    from phase 5's phase-A checkpoint; the trace must hold each kernel's launches in the
+    counts the launch counters moved by inside the window."""
+    from langsplat_tpu_torch.cli.train_cli import main as train_main
+    checkpoint = os.path.join(run_prefix + "_-1", f"chkpnt{TRAIN_STEPS}.npz")
+    phase_flags = {"A": ["--no_include_feature"],
+                   "B": ["--feature_level", "1", "--start_checkpoint", checkpoint]}
+    out = {}
+    for name, run in TRACE_RUNS.items():
+        zero_launches()
+        t0 = time.perf_counter()
+        result = train_main(
+            ["-s", train_scene, "-m", os.path.join(tmp, f"trace_run_{name}"), "--quiet",
+             "--iterations", str(run["steps"]), "--sh_degree", "3", *BUDGET_FLAGS,
+             "--test_iterations", "999999", "--checkpoint_iterations", "999999",
+             "--profile_dir", os.path.join(tmp, f"trace_{name}"),
+             "--profile_from", str(run["first"]), "--profile_steps", str(run["window"]),
+             *phase_flags[name]])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        seconds = time.perf_counter() - t0
+        history, trace = result["history"], result["trace"]
+        if len(history) != run["steps"] or not np.all(np.isfinite(history)):
+            raise RuntimeError(f"11a ({name}): bad loss history {history}")
+        if trace is None or tuple(trace["iterations"]) != run["traced"]:
+            raise RuntimeError(f"11a ({name}): expected a trace of iterations "
+                               f"{run['traced']}, got {trace}")
+        device = read_trace(trace)
+        counted = trace["launches"]
+        if device["launches_in_trace"] != counted or min(counted.values()) < 1:
+            raise RuntimeError(f"11a ({name}): kernel launches in the trace "
+                               f"{device['launches_in_trace']}, counted in the window "
+                               f"{counted}")
+        out[name] = dict(seconds=seconds, launches=launches, window_launches=counted,
+                         trace_mb=os.path.getsize(trace["path"]) / 2**20, **device)
+        log(f"phase 11a ({name}): {run['steps']} steps in {seconds:.1f} s; trace of "
+            f"iterations {trace['iterations']} holds the window's launches {counted}; "
+            + json.dumps(out[name]))
+    return out
+
+
+def gui_phase(train_scene: str, seed: int, device) -> dict:
+    """11b: `training()` with the viewer bridge on phase 5's scene: a viewer holds
+    iteration 1 for GUI_FRAMES frames at 1024x768 through view 0's camera, then releases
+    it; every frame must be byte-equal to the uint8 render, through K1, of the field that
+    scene creation gives."""
+    import socket
+    import threading
+    from langsplat_tpu_torch.config import ModelConfig, TrainConfig
+    from langsplat_tpu_torch.data.scene import Scene
+    from langsplat_tpu_torch.ops.render import RenderSettings
+    from langsplat_tpu_torch.train import loop
+    from langsplat_tpu_torch.utils import network_gui
+
+    mcfg = ModelConfig(source_path=train_scene, sh_degree=3)
+    pipe = PipelineConfig(budget_factor=int(BUDGET_FLAGS[1]))
+    ocfg = OptimizationConfig(iterations=1, include_feature=False)
+    cfg = TrainConfig(model=mcfg, pipeline=pipe, optimization=ocfg, test_iterations=(),
+                      save_iterations=(), checkpoint_iterations=(), seed=seed, quiet=True)
+    cam = load_camera(read_colmap_scene(train_scene).train_cameras[0], 1.0, -1, uid=0)
+    # the viewer sends the matrices with the Y/Z columns negated (receive flips back)
+    view = cam.world_view_transform.astype(np.float64)
+    proj = cam.full_proj_transform.astype(np.float64)
+    view[:, 1:3] *= -1.0
+    proj[:, 1] *= -1.0
+
+    def packet(train: bool, width: int = WIDTH, height: int = HEIGHT) -> bytes:
+        return network_gui.viewer_packet(width, height, cam.fov_x, cam.fov_y, view, proj,
+                                         train=train, keep_alive=False)
+
+    # the reference: the created field, rendered as the loop's poll renders it
+    t0 = time.perf_counter()
+    created = Scene(mcfg, device=device, seed=seed,
+                    initial_capacity_factor=ocfg.initial_capacity_factor).gaussians
+    minicam = network_gui.MiniCam(WIDTH, HEIGHT, cam.fov_y, cam.fov_x, 0.01, 100.0,
+                                  cam.world_view_transform, cam.full_proj_transform)
+    settings = RenderSettings(image_height=HEIGHT, image_width=WIDTH,
+                              tanfovx=minicam.tanfovx, tanfovy=minicam.tanfovy,
+                              sh_degree=0, include_feature=False, tile_size=TILE,
+                              budget=pipe.budget_factor * created.capacity)
+    with torch.no_grad():
+        want = bytes(network_gui.frame_bytes(render(
+            created, settings, *loop._camera_tensors(minicam, device),
+            torch.zeros(3, device=device))["render"]))
+    del created
+    ref_s = time.perf_counter() - t0
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    frames, frame_ms, errors = [], [], []
+
+    def viewer():
+        try:
+            with network_gui.ViewerClient("127.0.0.1", port, timeout=120) as conn:
+                # a zero resolution asks for no frame: the reply (the verify string
+                # alone) says the loop is polling, so the frames' clocks start there
+                conn.request(packet(False, 0, 0), 0, 0)
+                for train in [False] * GUI_FRAMES + [True]:
+                    t = time.perf_counter()
+                    frames.append(conn.request(packet(train), WIDTH, HEIGHT))
+                    frame_ms.append((time.perf_counter() - t) * 1e3)
+        except Exception as e:     # raised again below, in the main thread
+            errors.append(e)
+
+    client = threading.Thread(target=viewer, daemon=True)
+    client.start()
+    zero_launches()
+    t0 = time.perf_counter()
+    # the first step waits for the viewer, so that it is iteration 1 the viewer sees
+    result = loop.training(cfg, device=device, gui_port=port, gui_wait=120)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    client.join(timeout=60)
+    if client.is_alive() or errors:
+        raise RuntimeError(f"11b: the viewer failed: {errors or 'no reply'}")
+    if len(frames) != GUI_FRAMES + 1 or len(result["history"]) != 1:
+        raise RuntimeError(f"11b: {len(frames)} frames, {len(result['history'])} steps")
+    equal = [image == want for image, _ in frames]
+    if not all(equal) or {v for _, v in frames} != {train_scene}:
+        raise RuntimeError(f"11b: frames byte-equal to the created field's render: "
+                           f"{equal}")
+    if launches["blend_fwd"] < GUI_FRAMES + 2 or min(launches.values()) < 1:
+        raise RuntimeError(f"11b: launches {launches}")
+    out = dict(frame_ms=frame_ms, frames=len(frames), seconds=seconds,
+               reference_seconds=ref_s, launches=launches,
+               drawn_share=float(np.frombuffer(want, np.uint8).astype(bool).mean()))
+    log(f"phase 11b: {len(frames)} frames of {WIDTH}x{HEIGHT} byte-equal to K1's render "
+        f"of the created field; " + json.dumps(out))
+    return out
+
+
+class PrefetchWaits:
+    """Records how long each `FeaturePrefetcher.get` blocks the training loop, and
+    which path (`cameras.FEATURE_LOADS`, zeroed on entry) the loads took."""
+
+    def __enter__(self):
+        from langsplat_tpu_torch.data import cameras, prefetch
+        self.cameras, self.prefetch = cameras, prefetch
+        self.plain_get = prefetch.FeaturePrefetcher.get
+        self.waits_ms: list[float] = []
+
+        def timed_get(pf, cam):
+            t0 = time.perf_counter()
+            value = self.plain_get(pf, cam)
+            self.waits_ms.append((time.perf_counter() - t0) * 1e3)
+            return value
+
+        prefetch.FeaturePrefetcher.get = timed_get
+        for key in cameras.FEATURE_LOADS:
+            cameras.FEATURE_LOADS[key] = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.prefetch.FeaturePrefetcher.get = self.plain_get
+        self.loads = dict(self.cameras.FEATURE_LOADS)
+
+
+def loader_phase(train_scene: str, waits: PrefetchWaits) -> dict:
+    """11c: `get_language_feature` of view 0 at 1024x768 through the native loader and
+    through numpy (median of LOADER_REPS, bit-equal), and the prefetcher's waits in
+    phase 5's phase-B steps, every load of which must have been native."""
+    from langsplat_tpu_torch.data import cameras
+    cam = load_camera(read_colmap_scene(train_scene).train_cameras[0], 1.0, -1, uid=0)
+    lf_dir = os.path.join(train_scene, "language_features_dim3")
+    base = os.path.join(lf_dir, cam.image_name)
+
+    def median_ms(fn):
+        times, value = [], None
+        for _ in range(LOADER_REPS):
+            t0 = time.perf_counter()
+            value = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), value
+
+    native_ms, native_out = median_ms(lambda: cam.get_language_feature(lf_dir, 1))
+    numpy_ms, numpy_out = median_ms(
+        lambda: cameras.numpy_language_feature(base, 1, cam.height, cam.width))
+    equal = all(np.array_equal(a, b) for a, b in zip(native_out, numpy_out))
+    if not equal:
+        raise RuntimeError("11c: the native and numpy loaders differ")
+    if waits.loads["numpy"] != 0 or waits.loads["native"] < 1:
+        raise RuntimeError(f"11c: phase B's loads took the paths {waits.loads}")
+    out = dict(native_ms=native_ms, numpy_ms=numpy_ms, bit_equal=equal,
+               prefetch_wait_ms_median=float(np.median(waits.waits_ms)),
+               prefetch_wait_ms=waits.waits_ms, phase_b_loads=waits.loads)
+    log("phase 11c: " + json.dumps(out))
+    return out
+
+
+def small_scene(n: int, w: int, h: int, seed: int, device):
+    """A bench-box scene of n Gaussians scaled 8x on a small w x h view: (Gaussians,
+    preprocess output, instance buffer); phase 2's comparisons run on these."""
+    rng = np.random.default_rng(seed)
+    g = {k: torch.tensor(v, device=device) for k, v in bench_gaussians(n, rng).items()}
+    g["scales"] = g["scales"] * 8.0      # fewer, larger splats on a small image
+    view = transforms.world_to_view(np.eye(3), np.zeros(3)).T
+    proj = view @ transforms.projection_matrix(0.01, 100.0, FOV_X, FOV_X * h / w).T
+    tan_x, tan_y = math.tan(FOV_X / 2), math.tan(FOV_X * h / w / 2)
+    prep = projection.preprocess(
+        g["means"], g["scales"], g["quats"], None, torch.tensor(view, device=device),
+        torch.tensor(proj, device=device),
+        torch.tensor(np.linalg.inv(view)[3, :3], device=device),
+        image_height=h, image_width=w, tanfovx=tan_x, tanfovy=tan_y, sh_degree=0,
+        tile_size=TILE, colors_precomp=torch.rand((n, 3), device=device))
+    inst = tiles.bin_gaussians(prep, grid_x=-(-w // TILE), grid_y=-(-h // TILE),
+                               budget=64 * n, tile_size=TILE, opacities=g["opac"])
+    return g, prep, inst
+
+
+def tiled_phase(model_dir: str, scene_dir: str, device) -> dict:
+    """11d: view 0 of phase 3's field through the render path with the tiled backend
+    (--interpret), against K1 on every untruncated tile; then the tiled backward on a
+    small scene no tile of which is truncated: bit-equal over two runs, through K3, and
+    against the plain blend's gradients on the CPU."""
+    from langsplat_tpu_torch.ops.rasterize_tiled import rasterize_tiled, truncated_tiles
+    field = field_io.load_field(os.path.join(model_dir, "chkpnt1.npz"), device=device)[0]
+    cam = load_camera(read_colmap_scene(scene_dir).train_cameras[0], 1.0, -1, uid=0)
+    bg = [0.0, 0.0, 0.0]
+    size = dict(image_height=HEIGHT, image_width=WIDTH, tile_size=TILE)
+    with torch.no_grad():
+        zero_launches()
+        tiled = render_full(field, cam, PipelineConfig(interpret=True), 3, True, bg,
+                            device=device)
+        torch.cuda.synchronize()
+        tiled_launches = dict(_build.LAUNCHES)
+        k1 = render_full(field, cam, PipelineConfig(), 3, True, bg, device=device)
+        _, _, prep, inst, bargs = blend_inputs(field, cam, PipelineConfig(), True, device)
+        counts = inst.tile_start[1:] - inst.tile_start[:-1]
+        whole = (counts <= MAX_PER_TILE).reshape(-(-HEIGHT // TILE), -(-WIDTH // TILE))
+        whole = whole.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)[:HEIGHT, :WIDTH]
+        errs = {}
+        for key in ("render", "language_feature_image", "final_transmittance"):
+            diff = (tiled[key] - k1[key]).abs()
+            diff = diff if diff.dim() == 3 else diff[None]
+            errs[key] = float(diff[:, whole].max())
+        truncated = truncated_tiles(inst, MAX_PER_TILE)
+        tiled_render_ms = host_ms(lambda: render_full(
+            field, cam, PipelineConfig(interpret=True), 3, True, bg, device=device), reps=2)
+        k1_render_ms = host_ms(lambda: render_full(
+            field, cam, PipelineConfig(), 3, True, bg, device=device), reps=3)
+        tiled_blend_ms = cuda_ms(lambda: rasterize_tiled(
+            prep, inst, bargs[2], bargs[5], bargs[8], max_per_tile=MAX_PER_TILE, **size),
+            reps=2)
+    del field, tiled, k1, prep, inst, bargs
+    if sum(tiled_launches.values()) != 0:
+        raise RuntimeError(f"11d: the tiled render launched kernels {tiled_launches}")
+    if not max(errs.values()) <= TILED_TOL:
+        raise RuntimeError(f"11d: the tiled render differs from K1's on untruncated "
+                           f"tiles: {errs}")
+
+    # the backward: leaves of the blend on a small scene, the card twice, the CPU once
+    w, h = 77, 53
+    g, prep, inst = small_scene(600, w, h, 1, device)
+    if truncated_tiles(inst, MAX_PER_TILE):
+        raise RuntimeError("11d: the small scene truncates a tile")
+    feats = torch.nn.functional.normalize(torch.randn((600, 3), device=device), dim=1)
+    target = torch.rand((3, h, w), device=device)
+    ftarget = torch.rand((3, h, w), device=device)
+    leaves = (prep.means2d, prep.conics, g["opac"], prep.colors, feats)
+    bg_t = torch.rand(3, device=device)
+
+    def grads(blend, on):
+        xs = [x.detach().to(on).requires_grad_(True) for x in leaves]
+        p = prep._replace(**{k: v.to(on) for k, v in prep._asdict().items()})
+        p = p._replace(means2d=xs[0], conics=xs[1], colors=xs[3])
+        i = dataclasses.replace(inst, **{f.name: getattr(inst, f.name).to(on)
+                                         for f in dataclasses.fields(inst)
+                                         if isinstance(getattr(inst, f.name),
+                                                       torch.Tensor)})
+        out = blend(p, i, xs[2], xs[4], bg_t.to(on))
+        loss = (((out["render"] - target.to(on)) ** 2).mean()
+                + ((out["language_feature_image"] - ftarget.to(on)) ** 2).mean()
+                + 0.1 * out["final_transmittance"].mean())
+        return torch.autograd.grad(loss, xs)
+
+    def tiled_blend(p, i, opac, f, bg_):
+        return rasterize_tiled(p, i, opac, f, bg_, max_per_tile=MAX_PER_TILE,
+                               image_height=h, image_width=w, tile_size=TILE)
+
+    zero_launches()
+    first = grads(tiled_blend, device)
+    second = grads(tiled_blend, device)
+    torch.cuda.synchronize()
+    bwd_launches = dict(_build.LAUNCHES)
+    plain = grads(lambda p, i, opac, f, bg_: rasterize_cuda.rasterize(
+        p, i, opac, f, bg_, image_height=h, image_width=w, tile_size=TILE), "cpu")
+    bit_equal = all(torch.equal(a, b) for a, b in zip(first, second))
+    grad_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(first, plain))
+    if not bit_equal or bwd_launches != {"blend_fwd": 0, "blend_bwd": 0, "segsum": 2}:
+        raise RuntimeError(f"11d: tiled backward bit-equal {bit_equal}, launches "
+                           f"{bwd_launches}")
+    if not grad_err <= TILED_GRAD_TOL:
+        raise RuntimeError(f"11d: tiled gradients differ from the plain blend's by "
+                           f"{grad_err}")
+    out = dict(truncated_tiles=truncated, tiles=int(counts.numel()),
+               max_abs_err_untruncated=errs, tiled_render_ms=tiled_render_ms,
+               k1_render_ms=k1_render_ms, tiled_blend_ms=tiled_blend_ms,
+               render_launches=tiled_launches, backward_launches=bwd_launches,
+               backward_bit_equal=bit_equal, backward_max_abs_err=grad_err,
+               backward_instances=int(inst.num_instances))
+    log("phase 11d: " + json.dumps(out))
+    return out
+
+
+def metrics_phase(seed: int, device) -> dict:
+    """11e: the LPIPS arithmetic on the card against the CPU, on AlexNet-shaped layer
+    features of a 1024x768 image pair and lin weights made from --seed (the backbone's
+    weights are not in the repository)."""
+    from langsplat_tpu_torch.utils import metrics
+    rng = np.random.default_rng(seed + 11)
+    fa, fb = ([torch.tensor(rng.standard_normal(shape, dtype=np.float32))
+               for shape in ALEX_LAYERS] for _ in range(2))
+    lin = [torch.tensor(rng.uniform(0.0, 1.0, c).astype(np.float32) / c)
+           for c, _, _ in ALEX_LAYERS]
+    image = torch.tensor(rng.uniform(size=(3, HEIGHT, WIDTH)).astype(np.float32))
+
+    def on(xs):
+        return [x.to(device) for x in xs]
+
+    dist = metrics.lpips_distance(on(fa), on(fb), on(lin))
+    ref = metrics.lpips_distance(fa, fb, lin)
+    errs = dict(
+        lpips_distance=abs(float(dist) - float(ref)),
+        normalize_tensor=max(float((metrics.normalize_tensor(x.to(device)).cpu()
+                                    - metrics.normalize_tensor(x)).abs().max())
+                             for x in fa),
+        scale_image_for_lpips=float((metrics.scale_image_for_lpips(image.to(device)).cpu()
+                                     - metrics.scale_image_for_lpips(image)).abs().max()))
+    out = dict(lpips_distance=float(dist), max_abs_err=errs, tol=LPIPS_TOL)
+    log("phase 11e: " + json.dumps(out))
+    if not max(errs.values()) <= LPIPS_TOL:
+        raise RuntimeError(f"11e: the LPIPS arithmetic differs between card and CPU: {errs}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1650,12 +2046,13 @@ def main() -> int:
         xyz_limit = (5 * TRAIN_STEPS * OptimizationConfig().position_lr_init
                      * result_a["scene"].cameras_extent)
         checkpoint = os.path.join(run_prefix + "_-1", f"chkpnt{TRAIN_STEPS}.npz")
-        result_b = run_training_phase(
-            "B", ["-s", train_scene, "-m", run_prefix, "--quiet", "--feature_level", "1",
-                  "--iterations", str(TRAIN_STEPS), "--sh_degree", "3", *BUDGET_FLAGS,
-                  "--start_checkpoint", checkpoint, "--test_iterations", "999999",
-                  "--save_iterations", str(TRAIN_STEPS),
-                  "--checkpoint_iterations", str(TRAIN_STEPS)], train_logs)
+        with PrefetchWaits() as prefetch_waits:     # read by phase 11c
+            result_b = run_training_phase(
+                "B", ["-s", train_scene, "-m", run_prefix, "--quiet", "--feature_level",
+                      "1", "--iterations", str(TRAIN_STEPS), "--sh_degree", "3",
+                      *BUDGET_FLAGS, "--start_checkpoint", checkpoint,
+                      "--test_iterations", "999999", "--save_iterations", str(TRAIN_STEPS),
+                      "--checkpoint_iterations", str(TRAIN_STEPS)], train_logs)
         init_lf = 1e-2 * torch.randn((result_b["field"].capacity, 3),
                                      generator=torch.Generator().manual_seed(0))
         moved_b = float((result_b["field"].language_feature.cpu() - init_lf).abs().max())
@@ -1698,6 +2095,15 @@ def main() -> int:
         t0 = time.perf_counter()
         preprocessing["published_widths"] = published_widths_phase(tmp, args.seed, device)
         log(f"phase 10b: {time.perf_counter() - t0:.1f} s")
+
+        # 11. the rest of the single-device surface
+        t0 = time.perf_counter()
+        surface = dict(trace=trace_phase(tmp, train_scene, run_prefix),
+                       gui=gui_phase(train_scene, args.seed, device),
+                       loader=loader_phase(train_scene, prefetch_waits),
+                       tiled=tiled_phase(model_dir, scene_dir, device),
+                       metrics=metrics_phase(args.seed, device))
+        log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     for ph in ("A", "B"):
         for key, err in train_timings[ph]["errors"].items():
             errors[key] = max(errors[key], err)
@@ -1707,16 +2113,23 @@ def main() -> int:
 
     feat = timings["features"]
     ta, tb = train_timings["A"], train_timings["B"]
-    launches = {k: train_logs["A"]["launches"][k] + train_logs["B"]["launches"][k]
-                for k in ("blend_bwd", "segsum")}
+    # launches on each path, each counted from zero just before the path ran
+    paths = {"render": render_launches, "train_A": train_logs["A"]["launches"],
+             "train_B": train_logs["B"]["launches"],
+             "trace_A": surface["trace"]["A"]["launches"],
+             "trace_B": surface["trace"]["B"]["launches"],
+             "gui": surface["gui"]["launches"],
+             "tiled_render": surface["tiled"]["render_launches"],
+             "tiled_backward": surface["tiled"]["backward_launches"]}
+    launches = {k: sum(p[k] for p in paths.values()) for k in _build.LAUNCHES}
+    by_path = {k: {name: p[k] for name, p in paths.items() if p[k]} for k in launches}
     # `max_abs_err` is absolute for every kernel; each is held to `tol` of the kind
     # `tol_of` names, against `max_rel_err` where that is row-relative; the numbers
     # after `tol_of` are the same kernel on the training path's view 0 (phase A, B)
     kernels = [
         dict(name="blend_fwd", route="cuda", source="langsplat_tpu_torch/csrc/blend_fwd.cu",
              replaces="langsplat_tpu/ops/rasterize_pallas.py:597",
-             launches=render_launches["blend_fwd"] + train_logs["A"]["launches"][
-                 "blend_fwd"] + train_logs["B"]["launches"]["blend_fwd"],
+             launches=launches["blend_fwd"], launches_by_path=by_path["blend_fwd"],
              max_abs_err=errors["blend_fwd"],
              ms=feat["blend_ms"], plain_ms=feat["plain_ms"], bound_ms=feat["bound_ms"],
              bound_by=feat["bound_by"], library_ms=None, tol=TOL, tol_of="absolute",
@@ -1730,7 +2143,8 @@ def main() -> int:
              train_cull_kept_share=[ta["cull_kept_share"], tb["cull_kept_share"]]),
         dict(name="blend_bwd", route="cuda", source="langsplat_tpu_torch/csrc/blend_bwd.cu",
              replaces="langsplat_tpu/ops/rasterize_pallas.py:746",
-             launches=launches["blend_bwd"], max_abs_err=errors["blend_bwd"],
+             launches=launches["blend_bwd"], launches_by_path=by_path["blend_bwd"],
+             max_abs_err=errors["blend_bwd"],
              ms=ta["blend_bwd_ms"], plain_ms=ta["blend_bwd_plain_ms"],
              bound_ms=ta["blend_bwd_bound_ms"], bound_by=ta["blend_bwd_bound_by"],
              library_ms=None, max_rel_err=errors["blend_bwd_rel"], tol=BWD_TOL,
@@ -1743,7 +2157,8 @@ def main() -> int:
              cull_counted_by=CULL_COUNTED_BY),
         dict(name="segsum", route="cuda", source="langsplat_tpu_torch/csrc/segsum.cu",
              replaces="langsplat_tpu/ops/segsum_pallas.py:42",
-             launches=launches["segsum"], max_abs_err=errors["segsum"],
+             launches=launches["segsum"], launches_by_path=by_path["segsum"],
+             max_abs_err=errors["segsum"],
              ms=ta["segsum_ms"], plain_ms=ta["segsum_plain_ms"],
              bound_ms=ta["segsum_bound_ms"], bound_by=ta["segsum_bound_by"],
              library_ms=ta["segsum_library_ms"], max_rel_err=errors["segsum_rel"],
@@ -1755,6 +2170,7 @@ def main() -> int:
         {ph: train_logs[ph]["launches"] for ph in train_logs}))
     log("phase 9: " + json.dumps(evaluation))
     log("phase 10: " + json.dumps(preprocessing))
+    log("phase 11: " + json.dumps(surface))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

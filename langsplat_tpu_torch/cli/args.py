@@ -3,9 +3,10 @@
 PyTorch-port counterpart of `langsplat_tpu/cli/args.py`, with the same flags: the 3DGS
 model flags (--source_path/-s, --model_path/-m, --images/-i, --resolution/-r,
 --white_background/-w, --feature_level/-f), the rasterizer's pipeline flags and the
-optimization flags. The JAX package's flags that the port has no counterpart for yet
-(--interpret, --chunk, the multi-device flags) are accepted and refused with an error
-that names them, rather than ignored.
+optimization flags. --interpret selects the tiled backend (`ops/rasterize_tiled.py`) on
+the device asked, as in the JAX package. The JAX package's flags that the port has no
+counterpart for (--chunk, the TPU's Pallas block) or not yet (the multi-device flags)
+are accepted and refused with an error that names them, rather than ignored.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
                    help="the JAX package's Pallas chunk: refused (the port's kernels "
                         "take none)")
     p.add_argument("--interpret", action="store_true",
-                   help="the JAX package's CPU backend: refused (use --device cpu)")
+                   help="blend with the tiled backend (plain PyTorch, at most 1024 "
+                        "instances a tile) on the device asked")
     for name in ("depth_shards", "data_shards", "gauss_shards"):
         p.add_argument(f"--{name}", type=int, default=0,
                        help="multi-device training: not in the port yet (refused)")
@@ -67,17 +69,12 @@ def add_optimization_args(p: argparse.ArgumentParser) -> None:
 
 
 def refuse_unported(args) -> None:
-    """Raise for the flags of the JAX package that the port cannot honour yet."""
+    """Raise for the flags of the JAX package that the port does not honour."""
     asked = []
-    if args.interpret:
-        asked.append("--interpret (the JAX package's CPU backend; use --device cpu)")
     if args.chunk is not None:
         asked.append(f"--chunk {args.chunk} (the JAX package's Pallas chunk)")
     if args.dp_views_per_device != 1:
         asked.append(f"--dp_views_per_device {args.dp_views_per_device}")
-    for name in ("profile_from", "profile_steps"):
-        if getattr(args, name, None) is not None:
-            asked.append(f"--{name} {getattr(args, name)} (the profiler trace window)")
     if asked:
         raise NotImplementedError("options of the JAX package not ported yet: "
                                   + ", ".join(asked))
@@ -98,7 +95,7 @@ def extract_configs(args) -> TrainConfig:
         budget_factor=args.budget_factor,
         allow_budget_truncation=args.allow_budget_truncation,
         **{name: getattr(args, name) for name in (
-            "debug", "depth_shards", "data_shards", "gauss_shards", "zero2")})
+            "debug", "interpret", "depth_shards", "data_shards", "gauss_shards", "zero2")})
     optimization = OptimizationConfig(**{
         f: getattr(args, f) for f in OptimizationConfig.__dataclass_fields__
         if hasattr(args, f)})

@@ -8,7 +8,9 @@ Writes the same tree as `langsplat_tpu/cli/render_cli.py`: per view,
 plus the ground truth under `gt/` and `gt_npy/`. The .npy files are the eval pipeline's
 input. With --include_feature the output is the language feature image, read from the
 iteration's `chkpnt<iter>.npz`, and the ground truth is the camera's language feature.
-It runs on the CUDA card unless --device says otherwise, and fails without a card.
+It runs on the CUDA card unless --device says otherwise, and fails without a card;
+--interpret blends with the tiled backend (`ops/rasterize_tiled.py`) instead of the
+kernels.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ plus --device:
 The first line trains phase A (RGB 3DGS), the second phase B (language features) from
 a phase-A checkpoint of either package. The model path is suffixed with the feature
 level, as in the reference. It trains on the CUDA card unless --device says otherwise,
-and fails without a card.
+and fails without a card. --port serves the SIBR viewer on --ip; --profile_dir writes a
+torch.profiler trace of iterations --profile_from .. + --profile_steps - 1.
 """
 
 from __future__ import annotations
@@ -35,13 +36,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--ip", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=0,
-                        help="viewer bridge port (0 = disabled; not in the port yet)")
+                        help="SIBR viewer bridge port (0 = disabled)")
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="profiler trace directory (not in the port yet)")
-    parser.add_argument("--profile_from", type=int, default=None,
-                        help="profiler trace window (not in the port yet: refused)")
-    parser.add_argument("--profile_steps", type=int, default=None,
-                        help="profiler trace window (not in the port yet: refused)")
+                        help="write a torch.profiler trace of a few steps here")
+    parser.add_argument("--profile_from", type=int, default=50)
+    parser.add_argument("--profile_steps", type=int, default=5)
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to train on (default: the CUDA card; 'cpu' "
                              "runs the plain PyTorch blend)")
@@ -60,7 +59,8 @@ def main(argv=None) -> dict:
                   save_iterations=tuple(args.save_iterations),
                   checkpoint_iterations=tuple(args.checkpoint_iterations),
                   start_checkpoint=args.start_checkpoint, seed=args.seed,
-                  quiet=args.quiet, profile_dir=args.profile_dir)
+                  quiet=args.quiet, profile_dir=args.profile_dir,
+                  profile_from=args.profile_from, profile_steps=args.profile_steps)
     result = training(cfg, device=device, gui_host=args.ip, gui_port=args.port)
     print("\nTraining complete.")
     return result

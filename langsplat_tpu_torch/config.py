@@ -2,9 +2,10 @@
 
 PyTorch-port counterpart of `langsplat_tpu/config.py`: the same parameter names and
 defaults, so a run config (`cfg_args.json`) written by either package loads in the
-other. Keys this package has no use for (Pallas chunking, interpret mode, the
-profiler window) are not fields here and are ignored when a file holds them. The multi-device options are
-fields, so that the training loop can refuse them until the port has a parallel path.
+other. Keys this package has no use for (the Pallas chunk, `dp_views_per_device`) are
+not fields here and are ignored when a file holds them. `interpret` selects the tiled
+backend, as in the JAX package. The multi-device options are fields, so that the
+training loop can refuse them until the port has a parallel path.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ class PipelineConfig:
                                            # the instance budget cap is hit instead
                                            # of failing loudly
     debug: bool = False                # per-step budget/drop diagnostics
+    interpret: bool = False            # blend with the tiled backend (ops/rasterize_tiled)
     # multi-device training (the JAX package's device meshes); the port trains on one
     # device and refuses values above 1 until its parallel slice
     depth_shards: int = 0
@@ -94,8 +96,11 @@ class TrainConfig:
     start_checkpoint: str = ""
     seed: int = 0
     quiet: bool = False
-    # profiler trace directory of the JAX package; the port refuses it for now
+    # torch.profiler trace window: iterations [profile_from, profile_from +
+    # profile_steps) are written to profile_dir
     profile_dir: str = ""
+    profile_from: int = 50
+    profile_steps: int = 5
 
 
 _SECTIONS = {"model": ModelConfig, "pipeline": PipelineConfig,

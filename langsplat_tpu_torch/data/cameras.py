@@ -7,12 +7,25 @@ static per view and are moved to the device by the renderer.
 from __future__ import annotations
 
 import os
+import threading
 import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from langsplat_tpu_torch import native
 from langsplat_tpu_torch.core import transforms
+
+#: path -> language-feature loads through it since the last reset: "native" (the C++
+#: loader) or "numpy" (the inputs it cannot serve); a caller resets it to show which
+#: path a run took
+FEATURE_LOADS: dict[str, int] = {"native": 0, "numpy": 0}
+_loads_lock = threading.Lock()
+
+
+def _count_load(path: str) -> None:
+    with _loads_lock:
+        FEATURE_LOADS[path] += 1
 
 
 @dataclass
@@ -53,8 +66,10 @@ class Camera:
     def get_language_feature(self, language_feature_dir: str,
                              feature_level: int) -> tuple[np.ndarray, np.ndarray]:
         """(feature [F, H, W], mask [1, H, W]) from the `<image>_s.npy` seg map and
-        the `<image>_f.npy` feature table (the numpy path of the JAX package; its
-        native C++ loader is not ported yet).
+        the `<image>_f.npy` feature table, through the native loader (mmap and a
+        threaded gather, `langsplat_tpu_torch/native`) where it serves the input
+        (matching resolution, int16/32/64 seg map, float16/32 2-d table), bit-equal to
+        the numpy path below, which takes the rest.
 
         feature_level: 0=default, 1=s, 2=m, 3=l SAM granularity.
         """
@@ -62,22 +77,46 @@ class Camera:
         if not 0 <= feature_level <= 3:
             raise ValueError(f"feature_level={feature_level}")
 
-        seg_map = np.load(base + "_s.npy")          # [4, H', W'] int
-        feature_map = np.load(base + "_f.npy")      # [M, F]
-        seg = seg_map[feature_level]
-        if seg.shape != (self.height, self.width):
-            # the reference assumes seg maps match the camera resolution and crashes
-            # otherwise; resize with nearest neighbor instead (ids are categorical)
-            warnings.warn(f"seg map {seg.shape} != image {(self.height, self.width)}; "
-                          "nearest-resizing")
-            ys = (np.arange(self.height) * seg.shape[0] // self.height)
-            xs = (np.arange(self.width) * seg.shape[1] // self.width)
-            seg = seg[np.ix_(ys, xs)]
-        seg = seg.astype(np.int64)
-        mask = (seg != -1)[None].astype(np.float32)
-        feature = feature_map[np.clip(seg, 0, len(feature_map) - 1)]  # [H, W, F]
-        feature = np.where(mask[0][..., None] > 0, feature, 0.0)
-        return feature.transpose(2, 0, 1).astype(np.float32), mask
+        native_out = _native_language_feature(base, feature_level, self.height,
+                                              self.width)
+        if native_out is not None:
+            _count_load("native")
+            return native_out
+        _count_load("numpy")
+        return numpy_language_feature(base, feature_level, self.height, self.width)
+
+
+def numpy_language_feature(base: str, feature_level: int, height: int,
+                           width: int) -> tuple[np.ndarray, np.ndarray]:
+    """The numpy path of `Camera.get_language_feature` for `<base>_s.npy` and
+    `<base>_f.npy`."""
+    seg_map = np.load(base + "_s.npy")          # [4, H', W'] int
+    feature_map = np.load(base + "_f.npy")      # [M, F]
+    seg = seg_map[feature_level]
+    if seg.shape != (height, width):
+        # the reference assumes seg maps match the camera resolution and crashes
+        # otherwise; resize with nearest neighbor instead (ids are categorical)
+        warnings.warn(f"seg map {seg.shape} != image {(height, width)}; "
+                      "nearest-resizing")
+        ys = (np.arange(height) * seg.shape[0] // height)
+        xs = (np.arange(width) * seg.shape[1] // width)
+        seg = seg[np.ix_(ys, xs)]
+    seg = seg.astype(np.int64)
+    mask = (seg != -1)[None].astype(np.float32)
+    feature = feature_map[np.clip(seg, 0, len(feature_map) - 1)]  # [H, W, F]
+    feature = np.where(mask[0][..., None] > 0, feature, 0.0)
+    return feature.transpose(2, 0, 1).astype(np.float32), mask
+
+
+def _native_language_feature(base: str, feature_level: int, height: int,
+                             width: int) -> tuple[np.ndarray, np.ndarray] | None:
+    """The native loader's result, or None when it cannot serve this input."""
+    seg_path, feat_path = base + "_s.npy", base + "_f.npy"
+    probe = native.npy_shape(feat_path)
+    if probe is None or len(probe[0]) != 2:
+        return None
+    return native.gather_language_feature(seg_path, feat_path, feature_level, height,
+                                          width, probe[0][1])
 
 
 def load_camera(info, resolution_scale: float, resolution: int,

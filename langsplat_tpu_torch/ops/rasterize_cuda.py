@@ -549,18 +549,28 @@ class _Blend(torch.autograd.Function):
             means2d, conics, opacities, visible, colors, features, gauss_id, tile_start,
             presort_slot, g_image.contiguous(), g_tfinal, total, t_final,
             grad_mode=grad_mode, **ctx.options["size"])
-        budget = gauss_id.shape[0]
-        n = means2d.shape[0]
-        ends = torch.clamp(gauss_offsets, 0, budget).to(torch.int32).contiguous()
-        per_gauss = segment_sum(d_pre, ends, n).T                # [N, R]
-        none = (None,) * 7
-        if grad_mode == "feature":
-            return (None, None, None, None, per_gauss) + none
-        base = len(GRAD_ROWS)
-        d_features = None if features is None else per_gauss[:, base:]
-        d_opacities = torch.where(visible, per_gauss[:, 5], 0.0)
-        return (per_gauss[:, 0:2], per_gauss[:, 2:5], d_opacities, per_gauss[:, 6:9],
-                d_features) + none
+        return reduce_instance_grads(d_pre, gauss_offsets, visible, features is not None,
+                                     grad_mode) + (None,) * 7
+
+
+def reduce_instance_grads(d_pre, gauss_offsets, visible, has_features: bool,
+                          grad_mode: str) -> tuple:
+    """Per-Gaussian gradients (means2d, conics, opacities, colors, features; None for
+    what grad_mode leaves out) from the per-instance gradient rows d_pre [R, budget],
+    column presort_slot[i] for instance i: each Gaussian's slots
+    gauss_offsets[g] .. gauss_offsets[g+1] reduced in slot order by `segment_sum` (the
+    segment-sum kernel on the card), so the sums do not depend on scheduling."""
+    budget = d_pre.shape[1]
+    n = visible.shape[0]
+    ends = torch.clamp(gauss_offsets, 0, budget).to(torch.int32).contiguous()
+    per_gauss = segment_sum(d_pre, ends, n).T                # [N, R]
+    if grad_mode == "feature":
+        return (None, None, None, None, per_gauss)
+    base = len(GRAD_ROWS)
+    d_features = per_gauss[:, base:] if has_features else None
+    d_opacities = torch.where(visible, per_gauss[:, 5], 0.0)
+    return (per_gauss[:, 0:2], per_gauss[:, 2:5], d_opacities, per_gauss[:, 6:9],
+            d_features)
 
 
 def rasterize(prep: PreprocessOut, inst: InstanceBuffer, opacities: torch.Tensor,

@@ -4,8 +4,10 @@ PyTorch counterpart of `langsplat_tpu/ops/render.py`. Returns the same dict: `re
 [3,H,W], `language_feature_image` [F,H,W] (a [1,H,W] zero image without features),
 `final_transmittance`, `radii`, `visibility_filter` and the two drop counters that tell
 the caller to grow the instance budget or the per-Gaussian tile cap. Gradients flow
-through the blend (`rasterize_cuda.rasterize`) and the preprocess into the field's
-parameters; binning runs on detached inputs. `screenspace_offset` is the means2D
+through the blend and the preprocess into the field's parameters; binning runs on
+detached inputs. The blend is `rasterize_cuda.rasterize` (backend "cuda": the kernels
+on the card, their plain versions on the CPU) or `rasterize_tiled.rasterize_tiled`
+(backend "tiled", at most `max_per_tile` instances a tile, on any device). `screenspace_offset` is the means2D
 gradient tap: pass zeros [cap, 2] that require grad and read their gradient to drive
 densification statistics.
 """
@@ -21,6 +23,7 @@ from langsplat_tpu_torch.core import sh as sh_lib
 from langsplat_tpu_torch.ops import projection
 from langsplat_tpu_torch.ops.projection import PreprocessOut
 from langsplat_tpu_torch.ops.rasterize_cuda import rasterize
+from langsplat_tpu_torch.ops.rasterize_tiled import rasterize_tiled
 from langsplat_tpu_torch.ops.tiles import bin_gaussians, instance_counts
 
 
@@ -37,6 +40,8 @@ class RenderSettings:
     tile_size: int = 16
     budget: int = 0         # instance budget; 0 => 6 * capacity
     max_tiles_per_gaussian: int = 32
+    backend: str = "cuda"   # "cuda" | "tiled" (rasterize_tiled, capped at max_per_tile)
+    max_per_tile: int = 1024
     grad_mode: str = "full"  # "feature": the backward computes only the language-
                              # feature gradients (the feature phase freezes geometry)
     # the 3DGS convert_SHs_python / compute_cov3D_python cross-check paths: compute
@@ -110,11 +115,16 @@ def render(
         grid_x=settings.grid_x, grid_y=settings.grid_y,
         budget=budget, max_tiles_per_gaussian=settings.max_tiles_per_gaussian,
         tile_size=settings.tile_size, opacities=opac.detach())
-    out = rasterize(
-        prep, inst, opac, features, bg_color,
-        image_height=settings.image_height, image_width=settings.image_width,
-        tile_size=settings.tile_size, means2d_override=means2d,
-        grad_mode=settings.grad_mode)
+    blend_kw = dict(image_height=settings.image_height, image_width=settings.image_width,
+                    tile_size=settings.tile_size, means2d_override=means2d,
+                    grad_mode=settings.grad_mode)
+    if settings.backend == "tiled":
+        out = rasterize_tiled(prep, inst, opac, features, bg_color,
+                              max_per_tile=settings.max_per_tile, **blend_kw)
+    elif settings.backend == "cuda":
+        out = rasterize(prep, inst, opac, features, bg_color, **blend_kw)
+    else:
+        raise ValueError(f"backend must be 'cuda' or 'tiled', got {settings.backend!r}")
 
     out["radii"] = prep.radii
     out["visibility_filter"] = prep.radii > 0

@@ -8,8 +8,11 @@ for churned slots and the capacity grows geometrically when densification overfl
 A step whose render dropped instances (budget) or tile positions (max_tiles) is
 discarded and re-run at grown caps, as the JAX loop does.
 
-The JAX loop's multi-device branches (depth-, data- and Gaussian-sharded training), its
-network GUI and its profiler trace are not ported yet: `training` refuses those options.
+With `gui_port`, each iteration first serves the SIBR viewer (`utils/network_gui.py`).
+With `cfg.profile_dir`, a `torch.profiler` trace of iterations [profile_from,
+profile_from + profile_steps) is written there as a Chrome / TensorBoard trace JSON.
+The JAX loop's multi-device branches (depth-, data- and Gaussian-sharded training) are
+not ported yet: `training` refuses those options.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from langsplat_tpu_torch.data.scene import Scene
 from langsplat_tpu_torch.device import resolve_device
 from langsplat_tpu_torch.models import field_io
 from langsplat_tpu_torch.models.gaussian_field import grow_capacity
+from langsplat_tpu_torch.ops import _build
 from langsplat_tpu_torch.ops.render import RenderSettings, count_instances, render
 from langsplat_tpu_torch.train import densify as dn
 from langsplat_tpu_torch.train import trainer as tr
@@ -43,6 +47,7 @@ def make_settings(cam, pipe, active_sh_degree: int, include_feature: bool,
         tile_size=pipe.tile_size,
         budget=budget or pipe.budget_factor * capacity,
         max_tiles_per_gaussian=max_tiles or pipe.max_tiles_per_gaussian,
+        backend="tiled" if pipe.interpret else "cuda",
         convert_shs_python=pipe.convert_shs_python,
         compute_cov3d_python=pipe.compute_cov3d_python,
         # the feature phase freezes geometry: the backward then only needs
@@ -184,29 +189,58 @@ def _camera_tensors(cam, device):
         cam.world_view_transform, cam.full_proj_transform, cam.camera_center))
 
 
-def _refuse_unported(cfg: TrainConfig, gui_port: int) -> None:
+def _refuse_unported(cfg: TrainConfig) -> None:
     pipe = cfg.pipeline
     asked = [f"--{name} {getattr(pipe, name)}" for name in
              ("depth_shards", "data_shards", "gauss_shards") if getattr(pipe, name) > 1]
     if pipe.zero2:
         asked.append("--zero2")
-    if gui_port:
-        asked.append(f"--port {gui_port} (network GUI)")
-    if cfg.profile_dir:
-        asked.append(f"--profile_dir {cfg.profile_dir}")
     if asked:
         raise NotImplementedError(
-            "the PyTorch port trains on one device without the network GUI or the "
-            "profiler trace; not ported yet: " + ", ".join(asked))
+            "the PyTorch port trains on one device; not ported yet: " + ", ".join(asked))
+
+
+class TraceWindow:
+    """A `torch.profiler` trace over a window of training iterations: CPU activity, and
+    the card's with a CUDA device; no shapes or stacks (a step makes ~10^4 host
+    events). `stop` writes the Chrome / TensorBoard trace JSON and returns where it
+    went, with the kernel launches (`ops/_build.LAUNCHES`) made inside the window."""
+
+    def __init__(self, device: torch.device, first: int):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.device, self.first = device, first
+        self.launches = dict(_build.LAUNCHES)
+        self.profiler = profile(activities=activities)
+        self.profiler.start()
+
+    def stop(self, profile_dir: str, end: int) -> dict:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.profiler.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"iterations_{self.first}_{end}.pt.trace.json")
+        self.profiler.export_chrome_trace(path)
+        return {"path": path, "iterations": (self.first, end),
+                "launches": {k: v - self.launches[k] for k, v in _build.LAUNCHES.items()}}
+
+    def close(self) -> None:
+        """Stop the trace without writing it (the window did not end)."""
+        self.profiler.stop()
 
 
 def training(cfg: TrainConfig, device: str | torch.device | None = None,
-             gui_host: str = "127.0.0.1", gui_port: int = 0) -> dict:
-    """Train one phase on `device` (None: the CUDA card, raising without one).
-    Returns the final field, optimizer state, statistics, scene, loss history and
-    active SH degree."""
+             gui_host: str = "127.0.0.1", gui_port: int = 0,
+             gui_wait: float = 0.0) -> dict:
+    """Train one phase on `device` (None: the CUDA card, raising without one), serving
+    the viewer on gui_host:gui_port when gui_port is set; with gui_wait, the first step
+    waits up to that many seconds for the viewer to connect. Returns the final field,
+    optimizer state, statistics, scene, loss history, active SH degree and the profiler
+    trace (`TraceWindow.stop`'s record, None without one)."""
     device = resolve_device(device)
-    _refuse_unported(cfg, gui_port)
+    _refuse_unported(cfg)
     mcfg, ocfg, pipe = cfg.model, cfg.optimization, cfg.pipeline
     include_feature = ocfg.include_feature
     logger = RunLogger(mcfg.model_path or None, quiet=cfg.quiet)
@@ -283,136 +317,186 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
     prefetcher = (FeaturePrefetcher(mcfg.lf_path, mcfg.feature_level, device=device)
                   if include_feature else None)
 
-    for iteration in range(first_iter + 1, ocfg.iterations + 1):
-        if iteration % 1000 == 0 and active_sh_degree < mcfg.sh_degree:
-            active_sh_degree += 1
+    def gui_render(minicam, scale_mod):
+        settings = RenderSettings(
+            image_height=minicam.height, image_width=minicam.width,
+            tanfovx=minicam.tanfovx, tanfovy=minicam.tanfovy,
+            sh_degree=active_sh_degree, include_feature=False,
+            scale_modifier=float(scale_mod), tile_size=pipe.tile_size,
+            budget=pipe.budget_factor * field.capacity,
+            backend="tiled" if pipe.interpret else "cuda")
+        with torch.no_grad():
+            return render(field, settings, *_camera_tensors(minicam, device),
+                          bg)["render"]
 
-        cam, epoch_pos = cam_at(iteration)
-        if prefetcher is not None and epoch_pos + 1 < len(train_cams):
-            prefetcher.schedule(train_cams[epoch_order[epoch_pos + 1]])
-        view, proj, campos = _camera_tensors(cam, device)
+    gui = None
+    if gui_port:
+        from langsplat_tpu_torch.utils.network_gui import NetworkGUI
+        gui = NetworkGUI()
+        try:
+            gui.init(gui_host, gui_port)
+            if gui_wait:
+                gui.try_connect(gui_wait)
+        except OSError as e:
+            logger.log(f"network GUI disabled ({e})")
+            gui.close()
+            gui = None
 
-        timer.start()
-        while True:
-            settings = make_settings(cam, pipe, active_sh_degree, include_feature,
-                                     field.capacity, budget=budget_policy.budget,
-                                     max_tiles=tmax_policy.tmax)
-            if include_feature:
-                gt_feat, gt_mask = prefetcher.get(cam)
-                out = tr.train_step_feature(field, opt_state, stats, view, proj, campos,
-                                            gt_feat, gt_mask, bg, settings=settings,
-                                            optimizer=optimizer)
-            else:
-                out = tr.train_step_rgb(field, opt_state, stats, view, proj, campos,
-                                        _device_image(cam, device), bg,
-                                        settings=settings, optimizer=optimizer,
-                                        lambda_dssim=ocfg.lambda_dssim)
-            dropped, rect = int(out.dropped), int(out.rect_dropped)
-            if dropped == 0 and rect == 0:
-                break
-            # discard the truncated step (field, opt_state and stats are still the
-            # values before it) and re-run it at the grown cap(s)
-            grew = False
-            if rect > 0 and tmax_policy.grow():
-                logger.log(f"[iter {iteration}] max_tiles_per_gaussian -> "
-                           f"{tmax_policy.tmax} ({rect} rect positions dropped)")
-                grew = True
-            if dropped > 0 and budget_policy.grow(field.capacity):
-                logger.log(f"[iter {iteration}] instance budget -> "
-                           f"{budget_policy.budget} ({dropped} dropped)")
-                grew = True
-            if not grew:
-                msg = (f"[iter {iteration}] {dropped} instances dropped at the budget "
-                       f"cap {budget_policy.cap(field.capacity)} and {rect} rect "
-                       f"positions dropped at max_tiles={tmax_policy.tmax} (capacity "
-                       f"{field.capacity}, budget_factor {pipe.budget_factor}); raise "
-                       f"pipeline.budget_factor, or opt into truncation with "
-                       f"pipeline.allow_budget_truncation")
-                if not pipe.allow_budget_truncation:
-                    raise RuntimeError(msg)
-                logger.log("WARNING (truncated step): " + msg)
-                break
-        field, opt_state, stats = out.field, out.opt_state, out.stats
-        elapsed = timer.stop()
+    window, trace = None, None
+    try:
+        for iteration in range(first_iter + 1, ocfg.iterations + 1):
+            if cfg.profile_dir:
+                if iteration == cfg.profile_from:
+                    window = TraceWindow(device, iteration)
+                elif (window is not None
+                      and iteration == cfg.profile_from + cfg.profile_steps):
+                    trace = window.stop(cfg.profile_dir, iteration)
+                    window = None
+                    logger.log(f"profiler trace ({cfg.profile_steps} steps) written to "
+                               f"{trace['path']}")
+            if gui is not None:
+                gui.poll(gui_render, mcfg.source_path, iteration, ocfg.iterations)
 
-        loss_val = float(out.loss)
-        if pipe.debug:
-            logger.log(f"[iter {iteration}] debug: budget={budget_policy.budget} "
-                       f"cap={budget_policy.cap(field.capacity)} dropped={dropped} "
-                       f"alive={field.num_alive}/{field.capacity}")
-        history.append(loss_val)
-        logger.progress(iteration, loss_val,
-                        extra=f" n={field.num_alive} {elapsed:.0f}ms")
-        logger.scalar("train_loss_patches/l1_loss", float(out.l1), iteration)
-        logger.scalar("train_loss_patches/total_loss", loss_val, iteration)
-        logger.scalar("iter_time", elapsed, iteration)
+            if iteration % 1000 == 0 and active_sh_degree < mcfg.sh_degree:
+                active_sh_degree += 1
 
-        # densification (phase A only)
-        if not include_feature and iteration < ocfg.densify_until_iter:
-            if (iteration > ocfg.densify_from_iter
-                    and iteration % ocfg.densification_interval == 0):
-                # the split noise is a pure function of (seed, iteration), so a resumed
-                # run draws what an uninterrupted run would
-                gen = torch.Generator(device).manual_seed(
-                    cfg.seed * 1_000_003 + iteration)
-                res = dn.densify_and_prune(
-                    field, stats, gen, extent=scene.cameras_extent,
-                    grad_threshold=ocfg.densify_grad_threshold,
-                    percent_dense=ocfg.percent_dense, min_opacity=0.005,
-                    use_size_threshold=iteration > ocfg.opacity_reset_interval,
-                    size_threshold=20.0)
-                field, stats = res.field, res.stats
-                opt_state = tr.zero_moment_rows(opt_state, res.reset_mask)
-                overflow = int(res.overflow)
-                if overflow > 0:
-                    old_cap = field.capacity
-                    new_cap = int(old_cap * ocfg.capacity_growth_factor)
-                    logger.log(f"[iter {iteration}] capacity {old_cap} -> {new_cap} "
-                               f"(overflow {overflow})")
-                    field = grow_capacity(field, new_cap)
-                    opt_state = tr.pad_opt_state(opt_state, old_cap, new_cap)
-                    stats = dn.DensifyStats.zeros(new_cap, device)
-                logger.scalar("total_points", int(res.num_alive), iteration)
+            cam, epoch_pos = cam_at(iteration)
+            if prefetcher is not None and epoch_pos + 1 < len(train_cams):
+                prefetcher.schedule(train_cams[epoch_order[epoch_pos + 1]])
+            view, proj, campos = _camera_tensors(cam, device)
 
-            if iteration % ocfg.opacity_reset_interval == 0 or (
-                    mcfg.white_background and iteration == ocfg.densify_from_iter):
-                field = dn.reset_opacity(field)
-                opt_state = tr.zero_moment_rows(
-                    opt_state, torch.ones(field.capacity, dtype=torch.bool,
-                                          device=device), only_label="opacity")
+            timer.start()
+            while True:
+                settings = make_settings(cam, pipe, active_sh_degree, include_feature,
+                                         field.capacity, budget=budget_policy.budget,
+                                         max_tiles=tmax_policy.tmax)
+                if include_feature:
+                    gt_feat, gt_mask = prefetcher.get(cam)
+                    out = tr.train_step_feature(field, opt_state, stats, view, proj,
+                                                campos, gt_feat, gt_mask, bg,
+                                                settings=settings, optimizer=optimizer)
+                else:
+                    out = tr.train_step_rgb(field, opt_state, stats, view, proj, campos,
+                                            _device_image(cam, device), bg,
+                                            settings=settings, optimizer=optimizer,
+                                            lambda_dssim=ocfg.lambda_dssim)
+                dropped, rect = int(out.dropped), int(out.rect_dropped)
+                if dropped == 0 and rect == 0:
+                    break
+                # discard the truncated step (field, opt_state and stats are still the
+                # values before it) and re-run it at the grown cap(s)
+                grew = False
+                if rect > 0 and tmax_policy.grow():
+                    logger.log(f"[iter {iteration}] max_tiles_per_gaussian -> "
+                               f"{tmax_policy.tmax} ({rect} rect positions dropped)")
+                    grew = True
+                if dropped > 0 and budget_policy.grow(field.capacity):
+                    logger.log(f"[iter {iteration}] instance budget -> "
+                               f"{budget_policy.budget} ({dropped} dropped)")
+                    grew = True
+                if not grew:
+                    msg = (f"[iter {iteration}] {dropped} instances dropped at the "
+                           f"budget cap {budget_policy.cap(field.capacity)} and {rect} "
+                           f"rect positions dropped at max_tiles={tmax_policy.tmax} "
+                           f"(capacity {field.capacity}, budget_factor "
+                           f"{pipe.budget_factor}); raise pipeline.budget_factor, or opt "
+                           f"into truncation with pipeline.allow_budget_truncation")
+                    if not pipe.allow_budget_truncation:
+                        raise RuntimeError(msg)
+                    logger.log("WARNING (truncated step): " + msg)
+                    break
+            field, opt_state, stats = out.field, out.opt_state, out.stats
+            elapsed = timer.stop()
 
-        if iteration in cfg.test_iterations:
-            report = evaluate_psnr(field, scene, pipe, active_sh_degree, include_feature,
-                                   bg, budget=budget_policy.budget,
-                                   max_tiles=tmax_policy.tmax,
-                                   lf_path=mcfg.lf_path if include_feature else None,
-                                   feature_level=mcfg.feature_level)
-            for name, rep in report.items():
-                logger.log(f"[ITER {iteration}] Evaluating {name}: L1 {rep['l1']:.5f} "
-                           f"PSNR {rep['psnr']:.3f}")
-                logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"], iteration)
-                logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"], iteration)
-                if rep.get("feature_l1") is not None:
-                    logger.log(f"[ITER {iteration}] Evaluating {name}: feature-L1 "
-                               f"{rep['feature_l1']:.5f}")
-                    logger.scalar(f"{name}/loss_viewpoint - feature_l1",
-                                  rep["feature_l1"], iteration)
+            loss_val = float(out.loss)
+            if pipe.debug:
+                logger.log(f"[iter {iteration}] debug: budget={budget_policy.budget} "
+                           f"cap={budget_policy.cap(field.capacity)} dropped={dropped} "
+                           f"alive={field.num_alive}/{field.capacity}")
+            history.append(loss_val)
+            logger.progress(iteration, loss_val,
+                            extra=f" n={field.num_alive} {elapsed:.0f}ms")
+            logger.scalar("train_loss_patches/l1_loss", float(out.l1), iteration)
+            logger.scalar("train_loss_patches/total_loss", loss_val, iteration)
+            logger.scalar("iter_time", elapsed, iteration)
 
-        if iteration in cfg.save_iterations and mcfg.model_path:
-            logger.log(f"[ITER {iteration}] Saving Gaussians")
-            scene.save(iteration, field)
+            # densification (phase A only)
+            if not include_feature and iteration < ocfg.densify_until_iter:
+                if (iteration > ocfg.densify_from_iter
+                        and iteration % ocfg.densification_interval == 0):
+                    # the split noise is a pure function of (seed, iteration), so a
+                    # resumed run draws what an uninterrupted run would
+                    gen = torch.Generator(device).manual_seed(
+                        cfg.seed * 1_000_003 + iteration)
+                    res = dn.densify_and_prune(
+                        field, stats, gen, extent=scene.cameras_extent,
+                        grad_threshold=ocfg.densify_grad_threshold,
+                        percent_dense=ocfg.percent_dense, min_opacity=0.005,
+                        use_size_threshold=iteration > ocfg.opacity_reset_interval,
+                        size_threshold=20.0)
+                    field, stats = res.field, res.stats
+                    opt_state = tr.zero_moment_rows(opt_state, res.reset_mask)
+                    overflow = int(res.overflow)
+                    if overflow > 0:
+                        old_cap = field.capacity
+                        new_cap = int(old_cap * ocfg.capacity_growth_factor)
+                        logger.log(f"[iter {iteration}] capacity {old_cap} -> {new_cap} "
+                                   f"(overflow {overflow})")
+                        field = grow_capacity(field, new_cap)
+                        opt_state = tr.pad_opt_state(opt_state, old_cap, new_cap)
+                        stats = dn.DensifyStats.zeros(new_cap, device)
+                    logger.scalar("total_points", int(res.num_alive), iteration)
 
-        if iteration in cfg.checkpoint_iterations and mcfg.model_path:
-            logger.log(f"[ITER {iteration}] Saving Checkpoint")
-            field_io.save_checkpoint(
-                os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"), field,
-                opt_state, stats, iteration, spatial_lr_scale, active_sh_degree)
+                if iteration % ocfg.opacity_reset_interval == 0 or (
+                        mcfg.white_background and iteration == ocfg.densify_from_iter):
+                    field = dn.reset_opacity(field)
+                    opt_state = tr.zero_moment_rows(
+                        opt_state, torch.ones(field.capacity, dtype=torch.bool,
+                                              device=device), only_label="opacity")
 
-    if prefetcher is not None:
-        prefetcher.close()
-    logger.close()
+            if iteration in cfg.test_iterations:
+                report = evaluate_psnr(field, scene, pipe, active_sh_degree,
+                                       include_feature, bg, budget=budget_policy.budget,
+                                       max_tiles=tmax_policy.tmax,
+                                       lf_path=mcfg.lf_path if include_feature else None,
+                                       feature_level=mcfg.feature_level)
+                for name, rep in report.items():
+                    logger.log(f"[ITER {iteration}] Evaluating {name}: L1 "
+                               f"{rep['l1']:.5f} PSNR {rep['psnr']:.3f}")
+                    logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"],
+                                  iteration)
+                    logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"],
+                                  iteration)
+                    if rep.get("feature_l1") is not None:
+                        logger.log(f"[ITER {iteration}] Evaluating {name}: feature-L1 "
+                                   f"{rep['feature_l1']:.5f}")
+                        logger.scalar(f"{name}/loss_viewpoint - feature_l1",
+                                      rep["feature_l1"], iteration)
+
+            if iteration in cfg.save_iterations and mcfg.model_path:
+                logger.log(f"[ITER {iteration}] Saving Gaussians")
+                scene.save(iteration, field)
+
+            if iteration in cfg.checkpoint_iterations and mcfg.model_path:
+                logger.log(f"[ITER {iteration}] Saving Checkpoint")
+                field_io.save_checkpoint(
+                    os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"), field,
+                    opt_state, stats, iteration, spatial_lr_scale, active_sh_degree)
+
+        if window is not None:    # the loop ended inside the window
+            trace = window.stop(cfg.profile_dir, ocfg.iterations + 1)
+            window = None
+            logger.log(f"profiler trace (to the last step) written to {trace['path']}")
+    finally:    # also when a step or the viewer's render raises
+        if window is not None:
+            window.close()
+        if gui is not None:
+            gui.close()
+        if prefetcher is not None:
+            prefetcher.close()
+        logger.close()
     return {"field": field, "opt_state": opt_state, "stats": stats, "scene": scene,
-            "history": history, "active_sh_degree": active_sh_degree}
+            "history": history, "active_sh_degree": active_sh_degree, "trace": trace}
 
 
 @torch.no_grad()

@@ -435,3 +435,50 @@ def test_train_step_on_card_matches_cpu(cuda_device, phase):
         assert scale > 0, k
         err = (grads_g[k] - ref).abs()
         assert float((err > 1e-3 * scale).float().mean()) < 1e-3, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_mode", ["full", "feature"])
+def test_tiled_backend_on_card(cuda_device, grad_mode):
+    """The tiled backend (`ops/rasterize_tiled.py`, plain PyTorch) on the card: its
+    image within CARD_ATOL of the forward kernel's where no tile is truncated, and its
+    gradients bit-equal over two runs, reduced through the segment-sum kernel (K3), and
+    within 5e-5 of the plain blend's gradients on the CPU."""
+    from langsplat_tpu_torch.ops.rasterize_tiled import rasterize_tiled, truncated_tiles
+    w, h = 77, 53
+    prep, inst, opac, feats = binned(500, 1, w, h, 3, cuda_device)
+    assert truncated_tiles(inst, 1024) == 0
+    size = dict(image_height=h, image_width=w, tile_size=16)
+    bg = torch.tensor([0.3, 0.1, 0.6], device=cuda_device)
+
+    def grads(blend, device):
+        xs = [x.detach().to(device).requires_grad_(True)
+              for x in (prep.means2d, prep.conics, opac, prep.colors, feats)]
+        p = projection.PreprocessOut(*(t.to(device) for t in prep))._replace(
+            means2d=xs[0], conics=xs[1], colors=xs[3])
+        i = tiles.InstanceBuffer(**{k: getattr(inst, k).to(device) for k in (
+            "gauss_id", "tile_id", "tile_start", "num_instances", "dropped",
+            "rect_dropped", "presort_slot", "gauss_offsets")}, max_tiles=inst.max_tiles)
+        out = blend(p, i, xs[2], xs[4], bg.to(device), grad_mode=grad_mode, **size)
+        loss = ((out["language_feature_image"] - 0.3) ** 2).mean()
+        if grad_mode == "full":
+            loss = loss + (out["render"] ** 2).mean() + out["final_transmittance"].mean()
+        wrt = xs[4:] if grad_mode == "feature" else xs
+        return out, torch.autograd.grad(loss, wrt)
+
+    def tiled(*args, **kw):
+        return rasterize_tiled(*args, max_per_tile=1024, **kw)
+
+    launches = dict(_build.LAUNCHES)
+    out, first = grads(tiled, cuda_device)
+    _, second = grads(tiled, cuda_device)
+    assert _build.LAUNCHES["segsum"] == launches["segsum"] + 2
+    assert _build.LAUNCHES["blend_fwd"] == launches["blend_fwd"]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    ref_out, ref = grads(rasterize_cuda.rasterize, "cpu")
+    for a, b in zip(first, ref):
+        assert float((a.cpu() - b).abs().max()) <= 5e-5
+    image, t_final = rasterize_cuda.blend_forward_cuda(
+        *rasterize_cuda.blend_args(prep, inst, opac, feats, bg), **size)
+    assert float((out["render"].detach() - image[:3]).abs().max()) <= CARD_ATOL
+    assert float((out["final_transmittance"].detach() - t_final).abs().max()) <= CARD_ATOL

@@ -108,3 +108,22 @@ def test_preprocessing_entry_points_need_a_card_unless_asked(monkeypatch, tmp_pa
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert AutoMaskGenerator(None, device="cpu").device == torch.device("cpu")
+
+
+def test_the_single_device_surface_stands_alone():
+    """The metrics, the viewer bridge, the native loader, the tiled backend and the
+    COLMAP converter are modules of the port (so the two tests above import and parse
+    them), and the native build reads the port's own C++ source, which includes system
+    headers only."""
+    from langsplat_tpu_torch import native
+
+    for rel in ("utils/metrics.py", "utils/network_gui.py", "native/__init__.py",
+                "ops/rasterize_tiled.py", "cli/convert_cli.py"):
+        path = PORT / rel
+        assert path.exists(), rel
+        assert not [m for m in imported_modules(path) if forbidden(m)], rel
+    assert native.SOURCE == PORT / "native" / "langsplat_io.cpp"
+    assert native.BUILD_DIR == PORT / "_build"
+    includes = [line.split(None, 1)[1] for line in native.SOURCE.read_text().splitlines()
+                if line.startswith("#include")]
+    assert includes and all(i.startswith("<") for i in includes)

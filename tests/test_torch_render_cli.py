@@ -110,10 +110,10 @@ def test_render_cli_needs_a_card_unless_asked(model, tmp_path, monkeypatch):
         torch_render_main(["-m", str(model_dir), "-s", scene, "--skip_test"])
 
 
-@pytest.mark.parametrize("flags", [["--interpret"], ["--chunk", "128"]])
+@pytest.mark.parametrize("flags", [["--chunk", "128"], ["--dp_views_per_device", "2"]])
 def test_render_cli_refuses_jax_only_flags(model, flags):
-    """A JAX command line that asks for the CPU backend or a Pallas chunk fails with
-    a message naming the flag, rather than running as something else."""
+    """A JAX command line that asks for a Pallas chunk or several views per device fails
+    with a message naming the flag, rather than running as something else."""
     scene, model_dir, _ = model
     with pytest.raises(NotImplementedError, match=flags[0]):
         torch_render_main(["-m", str(model_dir), "-s", scene, "--skip_test",

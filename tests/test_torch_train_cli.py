@@ -99,8 +99,33 @@ def test_phase_b_from_the_port_checkpoint(scene, port_phase_a, tmp_path):
     assert torch.equal(result["field"].xyz, a_field.xyz)      # geometry frozen
 
 
-def test_jax_phase_b_from_the_port_checkpoint(scene, port_phase_a, tmp_path):
+def schedule_callback_outside_the_lock(self, cam):
+    """The JAX package's `FeaturePrefetcher.schedule` with its done-callback registered
+    after the lock is released, as the port's is. The JAX one registers it under the
+    lock, so a load that has already finished runs the callback in this thread, which
+    then waits on that lock forever (ROADMAP.md §3, the prefetcher record)."""
+    key = cam.image_name
+    if self.cache.get(key) is not None:
+        return
+    with self._lock:
+        if key in self._pending:
+            return
+        fut = self._pool.submit(self._load, cam)
+        self._pending[key] = fut
+
+    def _done(_fut, key=key):
+        with self._lock:
+            self._pending.pop(key, None)
+
+    fut.add_done_callback(_done)
+
+
+def test_jax_phase_b_from_the_port_checkpoint(scene, port_phase_a, tmp_path, monkeypatch):
     from langsplat_tpu.cli.train_cli import main as jax_train_main
+    from langsplat_tpu.data.prefetch import FeaturePrefetcher
+
+    # the JAX prefetcher's deadlock, which a fast load can hit, would hang the suite
+    monkeypatch.setattr(FeaturePrefetcher, "schedule", schedule_callback_outside_the_lock)
     run_dir, _ = port_phase_a
     out = str(tmp_path / "run")
     jax_train_main(["-s", scene, "-m", out, "--interpret",
@@ -166,11 +191,71 @@ def test_train_cli_needs_a_card_unless_asked(scene, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--data_shards", "4"], ["--depth_shards", "2"],
-                                   ["--gauss_shards", "2"], ["--port", "6009"],
-                                   ["--profile_dir", "trace"], ["--interpret"],
-                                   ["--chunk", "128"], ["--dp_views_per_device", "2"],
-                                   ["--profile_from", "10"], ["--profile_steps", "3"]])
+                                   ["--gauss_shards", "2"], ["--zero2"],
+                                   ["--chunk", "128"], ["--dp_views_per_device", "2"]])
 def test_unported_options_are_refused(scene, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         torch_train_main(["-s", scene, "-m", str(tmp_path / "run"), "--device", "cpu",
                           *PHASE_A, *flags])
+
+
+def test_interpret_trains_like_the_jax_cli(scene, jax_phase_a, tmp_path):
+    """--interpret: the tiled backend in both packages, on the same scene, field and
+    camera order."""
+    _, jax_history = jax_phase_a
+    result = torch_train_main(["-s", scene, "-m", str(tmp_path / "run"), "--device",
+                               "cpu", "--interpret", *SHORT_A])
+    np.testing.assert_allclose(result["history"], jax_history, rtol=1e-4)
+    with open(str(tmp_path / "run") + "_-1/cfg_args.json") as f:
+        assert json.load(f)["pipeline"]["interpret"] is True
+
+
+TRACE_A = ["--no_include_feature", "--resolution", "1", "--iterations", "4", "--quiet",
+           "--test_iterations", "99", "--save_iterations", "4",
+           "--checkpoint_iterations", "99", "--sh_degree", "1"]
+
+
+@pytest.mark.parametrize("window,iterations", [((2, 2), (2, 4)), ((3, 10), (3, 5))])
+def test_profiler_trace_window(scene, tmp_path, window, iterations):
+    """--profile_dir writes a torch.profiler trace of iterations [from, from + steps);
+    a window that runs past the last step is closed when the loop ends."""
+    trace_dir = str(tmp_path / "trace")
+    result = torch_train_main(
+        ["-s", scene, "-m", str(tmp_path / "run"), "--device", "cpu", *TRACE_A,
+         "--profile_dir", trace_dir, "--profile_from", str(window[0]),
+         "--profile_steps", str(window[1])])
+    trace = result["trace"]
+    assert tuple(trace["iterations"]) == iterations
+    assert trace["path"] == os.path.join(
+        trace_dir, "iterations_{}_{}.pt.trace.json".format(*iterations))
+    with open(trace["path"]) as f:
+        events = json.load(f)["traceEvents"]
+    ops = {e["name"] for e in events if e.get("cat") == "cpu_op"}
+    assert "aten::mul" in ops
+    # CPU tensors: the plain versions, no kernel launched inside the window
+    assert trace["launches"] == {"blend_fwd": 0, "blend_bwd": 0, "segsum": 0}
+    assert not torch.autograd.profiler._is_profiler_enabled
+
+
+def test_run_config_round_trips_between_the_packages(tmp_path):
+    """cfg_args.json with the trace window and interpret loads in both packages."""
+    from dataclasses import replace
+
+    from langsplat_tpu import config as jcfg
+    from langsplat_tpu_torch import config as tcfg
+
+    port = replace(tcfg.TrainConfig(), profile_dir="t", profile_from=7, profile_steps=2)
+    port.pipeline.interpret = True
+    tcfg.save_config(port, str(tmp_path / "port.json"))
+    loaded = jcfg.load_config(str(tmp_path / "port.json"))
+    assert (loaded.profile_dir, loaded.profile_from, loaded.profile_steps) == ("t", 7, 2)
+    assert loaded.pipeline.interpret is True
+
+    jax = replace(jcfg.TrainConfig(), profile_from=9, profile_steps=4)
+    jax.pipeline.interpret = True
+    jcfg.save_config(jax, str(tmp_path / "jax.json"))
+    loaded = tcfg.load_config(str(tmp_path / "jax.json"))
+    assert (loaded.profile_from, loaded.profile_steps) == (9, 4)
+    assert loaded.pipeline.interpret is True
+    assert (tcfg.TrainConfig().profile_from, tcfg.TrainConfig().profile_steps) == (
+        jcfg.TrainConfig().profile_from, jcfg.TrainConfig().profile_steps) == (50, 5)
