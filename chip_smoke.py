@@ -94,9 +94,28 @@ Phases (any failure ends the run with a non-zero exit):
      backward on a small scene, bit-equal over two runs, through K3, within 5e-5 of
      the plain blend's gradients on the CPU; (e) the LPIPS arithmetic on AlexNet-shaped
      layer features of a 1024x768 pair, card against CPU (1e-6).
+  12. multi-device training (`langsplat_tpu_torch/parallel/`), its 4 ranks sharing the
+     one card through gloo (this proves the multi-device code on the card, it measures
+     no scaling), resumed at phase 5's phase-A checkpoint (capacity 2.25M, 1.5M alive):
+     (12.0) every collective on CUDA tensors against the CPU; (12a) one data-parallel
+     step, 4 ranks x 1 view, against the serial 4-view step in this process (loss,
+     gradients, statistics within 1e-5), then the train CLI (2 ranks: 4 full-width
+     ranks do not fit the card) with --data_shards 2 --dp_views_per_device 2 and the
+     same with --zero2, 8 steps each with every Gaussian cloning (the capacity grows to
+     3.375M) and an opacity reset inside, the two runs agreeing; (12b) --gauss_shards
+     2, 5 steps with one shard-local densification; (12c) the depth-sharded render (4
+     shards, F = 3, full grad mode) against the one-device render (image 2e-4, feature
+     gradient 1e-4 of its largest), then phase B with --depth_shards 2, 4 steps; (12d)
+     one step on the 2x2 ('data', 'tiles') mesh
+     against the DP step over the same 2 views (lambda_dssim 0); (12e) one DP step in
+     a 1-rank NCCL group, bit-equal to the step without a group. Every CLI run's ranks
+     end with bit-equal replicated state and launch K1-K3 at least once a step; per
+     rank the step times (host clock), collective times (CUDA events), peak memory
+     and backend are printed.
 The launch counters are zeroed before, and read after, each path (phases 3, 5 A and B,
-8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward). The line
-before the last is the `kernels` JSON; the last line is the result JSON.
+8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward; phase 12's
+ranks are fresh processes, whose counts start at zero). The line before the last is the
+`kernels` JSON; the last line is the result JSON.
 It needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -104,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1881,6 +1901,314 @@ def metrics_phase(seed: int, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: multi-device training. The card machine has one H100: the ranks share it
+# and talk through gloo, which proves the multi-device code there (every rank launches
+# K1-K3, and the results equal one process's) but measures no scaling.
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 4              # the library checks' ranks
+# The train CLI's full-width ranks: 4 do not fit the one 80 GB card (PR 8's first chip
+# run: a rank of --data_shards 4 held 16.5 GiB and ran out of memory binning, with the
+# card full), so the CLI runs take 2 ranks, and 2 views a rank for 12a's 4-view batches
+PAR_CLI_RANKS = 2
+PAR_STEPS = 8               # 12a: steps after the resume at phase 5's checkpoint
+PAR_DENSIFY, PAR_RESET = 4, 5   # 12a: the step that densifies (and grows), that resets
+PAR_GAUSS_STEPS, PAR_GAUSS_DENSIFY = 5, 3
+PAR_B_STEPS = 4
+PAR_LOSS_RTOL = 1e-5        # a multi-rank loss against one process's
+PAR_GRAD_RTOL = 1e-5        # 12a's first step against the serial step, of each leaf's max
+DEPTH_IMG_TOL = 2e-4        # 12c: the depth-composed image against the one-device render
+DEPTH_GRAD_RTOL = 1e-4      # 12c: its feature gradient, of the largest
+DEPTH_OPACITY_RTOL = 1e-3   # 12c: its opacity gradient (the path with dL/dT into K2)
+SPATIAL_GRAD_RTOL = 1e-4    # 12d: the 2x2 step's gradients against the DP step's
+GLOO_STAGING = ("gloo copies CUDA tensors through host memory itself; collectives.py "
+                "stages none")
+
+
+def parallel_flags(train_scene: str, out: str, checkpoint: str, steps: int,
+                   densify_at: int | None = None, reset_at: int | None = None) -> list:
+    """Phase A resumed at phase 5's checkpoint for `steps` more steps; with densify_at,
+    every alive Gaussian clones at that step (the capacity grows), with reset_at the
+    opacities reset at that step."""
+    last = max(densify_at or 0, reset_at or 0)
+    return ["-s", train_scene, "-m", out, "--no_include_feature", "--quiet",
+            "--sh_degree", "3", *BUDGET_FLAGS, "--start_checkpoint", checkpoint,
+            "--iterations", str(TRAIN_STEPS + steps), "--test_iterations", "999999",
+            "--checkpoint_iterations", "999999", "--dist_backend", "gloo",
+            "--densify_grad_threshold", "0", "--percent_dense", "1000",
+            "--densify_from_iter", "5",
+            "--densification_interval", str(TRAIN_STEPS + (densify_at or 10 ** 6)),
+            "--densify_until_iter", str(TRAIN_STEPS + last + 1),
+            "--opacity_reset_interval", str(TRAIN_STEPS + reset_at if reset_at
+                                            else 10 ** 6)]
+
+
+def rank_summary(rank: dict) -> dict:
+    """One rank's record of a spawned run, for the log."""
+    steps = rank["step_ms"]
+    coll = rank["collectives"]
+    return dict(rank=rank["rank"], backend=rank["backend"], device=rank["device"],
+                step_ms_first=steps[0], step_ms_median=float(np.median(steps[1:] or steps)),
+                collectives_ms=sum(c["ms"] for c in coll.values()),
+                collectives={k: dict(calls=v["calls"], ms=round(v["ms"], 3))
+                             for k, v in coll.items()},
+                peak_memory_gib=(rank["peak_memory_bytes"] or 0) / 2 ** 30,
+                launches=rank["launches"],
+                staging=GLOO_STAGING if rank["backend"] == "gloo" else "none")
+
+
+def parallel_cli_run(name: str, argv: list, steps: int) -> dict:
+    """The train CLI with a multi-device flag (it starts its ranks); every rank must
+    launch each kernel at least once a step and end with the same replicated state."""
+    from langsplat_tpu_torch.cli.train_cli import main as train_main
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result = train_main(argv)
+    seconds = time.perf_counter() - t0
+    history, ranks = result["history"], result["ranks"]
+    summaries = [rank_summary(r) for r in ranks]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in _build.LAUNCHES}
+    out = dict(seconds=seconds, steps=len(history), loss_first=history[0],
+               loss_last=history[-1], capacity=result["field"].capacity,
+               alive=result["field"].num_alive, world=len(ranks),
+               kind=ranks[0]["kind"], launches=launches, ranks=summaries,
+               state_hash=ranks[0]["state_hashes"][0][:16])
+    log(f"phase 12 ({name}): {json.dumps(out)}")
+    if len(history) != steps or not np.all(np.isfinite(history)):
+        raise RuntimeError(f"12 {name}: bad loss history {history}")
+    if len({h for r in ranks for h in r["state_hashes"]}) != 1:
+        raise RuntimeError(f"12 {name}: the replicated state differs across ranks")
+    check_rank_launches(name, ranks, steps)
+    out["history"] = history
+    return out
+
+
+def check_rank_launches(name: str, ranks: list, steps: int) -> None:
+    for r in ranks:
+        for key in ("blend_fwd", "blend_bwd", "segsum"):
+            if r["launches"][key] < steps:
+                raise RuntimeError(f"12 {name}: rank {r['rank']} launched {key} "
+                                   f"{r['launches'][key]} times in {steps} steps")
+
+
+def schedule_batch(cams: list, seed: int, iteration: int, batch: int) -> list:
+    """The cameras of a data-parallel iteration, as `train/loop.py training` schedules
+    them (the per-epoch shuffle of positions (iteration - 1) * batch + j)."""
+    import random
+    out = []
+    for idx in range((iteration - 1) * batch, iteration * batch):
+        epoch, pos = divmod(idx, len(cams))
+        order = list(range(len(cams)))
+        random.Random(seed * 1_000_003 + epoch).shuffle(order)
+        out.append(cams[order[pos]])
+    return out
+
+
+def view_spec(cams: list, features=None) -> dict:
+    return dict(viewmats=[np.asarray(c.world_view_transform, np.float32) for c in cams],
+                projmats=[np.asarray(c.full_proj_transform, np.float32) for c in cams],
+                campos=[np.asarray(c.camera_center, np.float32) for c in cams],
+                gts=[np.asarray(c.image, np.float32) for c in cams] if features is None
+                else features[0],
+                masks=[np.ones((1, 1, 1), np.float32)] * len(cams) if features is None
+                else features[1])
+
+
+def rel_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def step_errors(par: dict, ser: dict) -> dict:
+    """A multi-rank step's output against one process's."""
+    out = dict(loss=rel_err(par["loss"], ser["loss"]),
+               stats=max(rel_err(a, b) for a, b in zip(par["stats"], ser["stats"])))
+    if "grads" in ser:
+        out["grads"] = max(rel_err(par["grads"][k], g) for k, g in ser["grads"].items())
+    return out
+
+
+def parallel_checks(train_scene: str, checkpoint: str, seed: int, device) -> dict:
+    """12.0, 12a's first step, 12c's render, 12d, 12e: library steps on spawned ranks
+    against the same step in this process."""
+    from langsplat_tpu_torch.config import ModelConfig
+    from langsplat_tpu_torch.data.scene import Scene
+    from langsplat_tpu_torch.parallel import launch, runner
+
+    cams = Scene(ModelConfig(source_path=train_scene), device="cpu", seed=seed,
+                 create_field=False).get_train_cameras()
+    field, _, _, deg, _ = field_io.load_field(checkpoint, device="cpu")
+    cap = field.capacity
+    del field
+    pipe = PipelineConfig(budget_factor=int(BUDGET_FLAGS[1]))
+    first = schedule_batch(cams, seed, TRAIN_STEPS + 1, PAR_RANKS)
+    base = dict(checkpoint=checkpoint, opt_config=OptimizationConfig(),
+                bg=np.zeros(3, np.float32),
+                include_feature=False, lambda_dssim=0.2, rank0_only=True)
+    dp_spec = dict(base, resume=True, return_grads=True, grow=True,
+                   settings=make_settings(first[0], pipe, deg, False, cap,
+                                          budget=BudgetPolicy(pipe, cap).cap(cap) // 4),
+                   **view_spec(first))
+    t0 = time.perf_counter()
+    serial = runner.run([("dp_step", dp_spec)], device=device)[0]
+    settings = dataclasses.replace(dp_spec["settings"], budget=serial["budget"],
+                                   max_tiles_per_gaussian=serial["max_tiles"])
+    log(f"phase 12: the serial 4-view step (one process) in "
+        f"{time.perf_counter() - t0:.1f} s at budget {settings.budget}, max_tiles "
+        f"{settings.max_tiles_per_gaussian}")
+    torch.cuda.empty_cache()
+
+    # 12c's render: phase B's field (features from the loop's seed), full grad mode
+    rng = np.random.default_rng(seed + 12)
+    feat_settings = dataclasses.replace(settings, include_feature=True, grad_mode="full",
+                                        budget=settings.budget * PAR_RANKS)
+    depth_spec = dict(base, include_feature=True, settings=feat_settings,
+                      grad_of=("language_feature", "opacity"),
+                      weights={k: rng.normal(size=(3, HEIGHT, WIDTH)).astype(np.float32)
+                               for k in ("render", "language_feature_image")},
+                      **view_spec(first[:1]))
+    spatial_spec = dict(base, lambda_dssim=0.0, **view_spec(first[:2]),
+                        settings=dataclasses.replace(settings, budget=settings.budget * 2))
+    t0 = time.perf_counter()
+    outs = launch.spawn(runner.run, ([("collectives_check", {"rows": 1 << 12, "cols": 9}),
+                                      ("dp_step", dict(dp_spec, settings=settings,
+                                                       grow=False)),
+                                      ("depth_step", depth_spec),
+                                      ("dp_spatial_step", spatial_spec)],),
+                        PAR_RANKS, device_type="cuda", backend="gloo")
+    spawned_s = time.perf_counter() - t0
+    probe = [o[0] for o in outs]
+    log("phase 12.0: collectives on CUDA tensors, gloo, 4 ranks on one card, against "
+        "the CPU: " + json.dumps([dict(rank=r, device=p["device"], errors=p["errors"])
+                                  for r, p in enumerate(probe)]))
+    if max(max(p["errors"].values()) for p in probe) > 1e-5:
+        raise RuntimeError("12.0: a collective on CUDA tensors disagrees with the CPU")
+    digests_equal = all(len({o[i]["digest"] for o in outs}) == 1 for i in (1, 2, 3))
+    dp4 = outs[0][1]
+    first_step = dict(step_errors(dp4, serial), seconds=spawned_s,
+                      replicated_equal=digests_equal,
+                      dropped=dp4["dropped"], rect_dropped=dp4["rect_dropped"])
+    log(f"phase 12a (first step, 4 ranks x 1 view vs one process x 4 views, {spawned_s:.1f}"
+        f" s with 12.0, 12c's render and 12d): " + json.dumps(first_step))
+    if not (first_step["loss"] <= PAR_LOSS_RTOL and first_step["grads"] <= PAR_GRAD_RTOL
+            and first_step["stats"] <= PAR_GRAD_RTOL and digests_equal
+            and dp4["dropped"] == dp4["rect_dropped"] == 0):
+        raise RuntimeError(f"12a: the 4-rank step differs from the serial step: "
+                           f"{first_step}")
+    del serial, dp4
+    torch.cuda.empty_cache()
+
+    single = runner.run([("render_step", dict(depth_spec, settings=dataclasses.replace(
+        feat_settings, budget=settings.budget)))], device=device)[0]
+    depth = outs[0][2]
+    depth_err = dict(
+        image=float(max(np.abs(depth[k] - single[k]).max() for k in
+                        ("render", "language_feature_image", "final_transmittance"))),
+        feature_grad=rel_err(depth["grads"]["language_feature"],
+                             single["grads"]["language_feature"]),
+        opacity_grad=rel_err(depth["grads"]["opacity"], single["grads"]["opacity"]),
+        dropped=depth["instances_dropped"])
+    log("phase 12c (the depth-sharded render and its gradients, 4 shards vs one device, "
+        "F = 3): " + json.dumps(depth_err))
+    if not (depth_err["image"] <= DEPTH_IMG_TOL
+            and depth_err["feature_grad"] <= DEPTH_GRAD_RTOL
+            and depth_err["opacity_grad"] <= DEPTH_OPACITY_RTOL
+            and depth_err["dropped"] == 0):
+        raise RuntimeError(f"12c: the depth-sharded render differs: {depth_err}")
+    del single, depth
+
+    dp2 = runner.run([("dp_step", dict(spatial_spec, settings=settings))],
+                     device=device)[0]
+    spatial = outs[0][3]
+    # a fresh Adam state: mu = 0.1 g after one update
+    spatial_err = dict(loss=rel_err(spatial["loss"], dp2["loss"]),
+                       grads=max(rel_err(a, b) for a, b in zip(
+                           spatial["opt_leaves"], dp2["opt_leaves"]) if np.ndim(b) > 0),
+                       stats=max(rel_err(a, b) for a, b in
+                                 zip(spatial["stats"], dp2["stats"])))
+    log("phase 12d (one 2x2 ('data', 'tiles') step vs the DP step over the same 2 "
+        "views, lambda_dssim 0): " + json.dumps(spatial_err))
+    if not (spatial_err["loss"] <= PAR_LOSS_RTOL
+            and spatial_err["grads"] <= SPATIAL_GRAD_RTOL
+            and spatial_err["stats"] <= SPATIAL_GRAD_RTOL):
+        raise RuntimeError(f"12d: the 2x2 step differs from the DP step: {spatial_err}")
+    del dp2, spatial, outs
+    torch.cuda.empty_cache()
+
+    # 12e: a 1-rank NCCL group against no group at all, bit for bit
+    one_spec = dict(dp_spec, settings=settings, grow=False, return_grads=False,
+                    **view_spec(first[:1]))
+    t0 = time.perf_counter()
+    nccl = launch.spawn(runner.run, ([("dp_step", one_spec)],), 1, device_type="cuda",
+                        backend="nccl")[0][0]
+    nccl_s = time.perf_counter() - t0
+    alone = runner.run([("dp_step", one_spec)], device=device)[0]
+    nccl_out = dict(bit_equal=nccl["digest"] == alone["digest"], seconds=nccl_s,
+                    loss=nccl["loss"])
+    log("phase 12e (one DP step in a 1-rank NCCL group vs one process): "
+        + json.dumps(nccl_out))
+    if not nccl_out["bit_equal"]:
+        raise RuntimeError("12e: the 1-rank NCCL step is not bit-equal to one process's")
+    return dict(collectives=[p["errors"] for p in probe], first_step=first_step,
+                depth=depth_err, dp_spatial=spatial_err, nccl=nccl_out,
+                budget=settings.budget, max_tiles=settings.max_tiles_per_gaussian)
+
+
+def parallel_phase(train_scene: str, run_prefix: str, seed: int, device) -> dict:
+    """Phase 12: the library checks on 4 ranks, then the train CLI on 2 ranks with
+    --data_shards (2 views a rank; and with --zero2), --gauss_shards, and phase B with
+    --depth_shards, every run resumed at phase 5's checkpoint, so no rank repeats the
+    3-NN."""
+    checkpoint = os.path.join(run_prefix + "_-1", f"chkpnt{TRAIN_STEPS}.npz")
+    tmp = os.path.dirname(run_prefix)
+    # the ranks share the card with this process: give them what it no longer uses
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12: this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"of the card")
+    checks = parallel_checks(train_scene, checkpoint, seed, device)
+    runs = {}
+    # the ranks' allocators give freed memory back to the shared card
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    views = PAR_RANKS // PAR_CLI_RANKS
+    for name, extra in (("dp", []), ("dp_zero2", ["--zero2"])):
+        runs[name] = parallel_cli_run(
+            name, parallel_flags(train_scene, os.path.join(tmp, name), checkpoint,
+                                 PAR_STEPS, PAR_DENSIFY, PAR_RESET)
+            + ["--data_shards", str(PAR_CLI_RANKS), "--dp_views_per_device", str(views)]
+            + extra, PAR_STEPS)
+    start_capacity = int(N_FULL * OptimizationConfig().initial_capacity_factor
+                         * OptimizationConfig().capacity_growth_factor)
+    dp, z2 = runs["dp"], runs["dp_zero2"]
+    if not (dp["capacity"] > start_capacity and dp["alive"] > int(N_FULL * 1.5)):
+        raise RuntimeError(f"12a: densification did not clone into a grown capacity: "
+                           f"{dp['capacity']}, {dp['alive']} alive")
+    zero2_err = rel_err(z2["history"], dp["history"])
+    log(f"phase 12a: ZeRO-2 against replicated: losses within {zero2_err:.3e}, capacity "
+        f"{z2['capacity']} / {dp['capacity']}, alive {z2['alive']} / {dp['alive']}")
+    # ZeRO-2 rounds the capacity up to a multiple of the ranks
+    if not (zero2_err <= 1e-4 and z2["alive"] == dp["alive"] and
+            z2["capacity"] == -(-dp["capacity"] // PAR_CLI_RANKS) * PAR_CLI_RANKS):
+        raise RuntimeError("12a: the ZeRO-2 run differs from the replicated run")
+    runs["gauss"] = parallel_cli_run(
+        "gauss", parallel_flags(train_scene, os.path.join(tmp, "gauss"), checkpoint,
+                                PAR_GAUSS_STEPS, PAR_GAUSS_DENSIFY)
+        + ["--gauss_shards", str(PAR_CLI_RANKS)], PAR_GAUSS_STEPS)
+    if not runs["gauss"]["capacity"] > start_capacity:
+        raise RuntimeError("12b: the sharded densification did not grow the capacity")
+    runs["depth_B"] = parallel_cli_run(
+        "depth_B", ["-s", train_scene, "-m", os.path.join(tmp, "depth"), "--quiet",
+                     "--feature_level", "1", "--sh_degree", "3", *BUDGET_FLAGS,
+                     "--start_checkpoint", checkpoint, "--iterations", str(PAR_B_STEPS),
+                     "--test_iterations", "999999", "--checkpoint_iterations", "999999",
+                     "--depth_shards", str(PAR_CLI_RANKS), "--dist_backend", "gloo"],
+        PAR_B_STEPS)
+    for run in runs.values():
+        run.pop("history")
+    return dict(checks=checks, runs=runs)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2043,6 +2371,7 @@ def main() -> int:
                   - torch.as_tensor(points, dtype=torch.float32, device=device)).abs()
         moved_a = float(step_a.max())
         moved_share = float((step_a.amax(dim=1) > 0).float().mean())
+        del step_a, field_a
         xyz_limit = (5 * TRAIN_STEPS * OptimizationConfig().position_lr_init
                      * result_a["scene"].cameras_extent)
         checkpoint = os.path.join(run_prefix + "_-1", f"chkpnt{TRAIN_STEPS}.npz")
@@ -2104,6 +2433,11 @@ def main() -> int:
                        tiled=tiled_phase(model_dir, scene_dir, device),
                        metrics=metrics_phase(args.seed, device))
         log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+        # 12. multi-device training, 4 ranks sharing the card through gloo
+        t0 = time.perf_counter()
+        parallel = parallel_phase(train_scene, run_prefix, args.seed, device)
+        log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     for ph in ("A", "B"):
         for key, err in train_timings[ph]["errors"].items():
             errors[key] = max(errors[key], err)
@@ -2120,7 +2454,9 @@ def main() -> int:
              "trace_B": surface["trace"]["B"]["launches"],
              "gui": surface["gui"]["launches"],
              "tiled_render": surface["tiled"]["render_launches"],
-             "tiled_backward": surface["tiled"]["backward_launches"]}
+             "tiled_backward": surface["tiled"]["backward_launches"],
+             **{f"parallel_{name}": run["launches"]
+                for name, run in parallel["runs"].items()}}
     launches = {k: sum(p[k] for p in paths.values()) for k in _build.LAUNCHES}
     by_path = {k: {name: p[k] for name, p in paths.items() if p[k]} for k in launches}
     # `max_abs_err` is absolute for every kernel; each is held to `tol` of the kind
@@ -2171,6 +2507,7 @@ def main() -> int:
     log("phase 9: " + json.dumps(evaluation))
     log("phase 10: " + json.dumps(preprocessing))
     log("phase 11: " + json.dumps(surface))
+    log("phase 12: " + json.dumps(parallel))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,9 +4,11 @@ PyTorch-port counterpart of `langsplat_tpu/cli/args.py`, with the same flags: th
 model flags (--source_path/-s, --model_path/-m, --images/-i, --resolution/-r,
 --white_background/-w, --feature_level/-f), the rasterizer's pipeline flags and the
 optimization flags. --interpret selects the tiled backend (`ops/rasterize_tiled.py`) on
-the device asked, as in the JAX package. The JAX package's flags that the port has no
-counterpart for (--chunk, the TPU's Pallas block) or not yet (the multi-device flags)
-are accepted and refused with an error that names them, rather than ignored.
+the device asked, as in the JAX package. The multi-device flags (--data_shards, --zero2,
+--dp_views_per_device, --gauss_shards, --depth_shards) are the training CLI's: it runs
+one process per rank (`parallel/launch.py`). The JAX package's flag that the port has no
+counterpart for (--chunk, the TPU's Pallas block) is accepted and refused with an error
+that names it, rather than ignored.
 """
 
 from __future__ import annotations
@@ -43,13 +45,20 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--interpret", action="store_true",
                    help="blend with the tiled backend (plain PyTorch, at most 1024 "
                         "instances a tile) on the device asked")
-    for name in ("depth_shards", "data_shards", "gauss_shards"):
-        p.add_argument(f"--{name}", type=int, default=0,
-                       help="multi-device training: not in the port yet (refused)")
+    p.add_argument("--depth_shards", type=int, default=0,
+                   help="phase B over this many ranks, each blending one interval of "
+                        "the depth order (parallel/depth_sharded.py)")
+    p.add_argument("--data_shards", type=int, default=0,
+                   help="train data-parallel over this many ranks (parallel/"
+                        "data_parallel.py); 1 with --dp_views_per_device > 1 trains "
+                        "that view batch in one process")
+    p.add_argument("--gauss_shards", type=int, default=0,
+                   help="split the Gaussians' rows and the image's tile bands over this "
+                        "many ranks (parallel/gauss_sharded.py)")
     p.add_argument("--zero2", action="store_true",
-                   help="multi-device training: not in the port yet (refused)")
+                   help="with --data_shards: split the Adam moments by rows")
     p.add_argument("--dp_views_per_device", type=int, default=1,
-                   help="multi-device training: not in the port yet (refused above 1)")
+                   help="with --data_shards: views a rank renders a step")
 
 
 def add_optimization_args(p: argparse.ArgumentParser) -> None:
@@ -69,15 +78,10 @@ def add_optimization_args(p: argparse.ArgumentParser) -> None:
 
 
 def refuse_unported(args) -> None:
-    """Raise for the flags of the JAX package that the port does not honour."""
-    asked = []
+    """Raise for the flag of the JAX package that the port does not honour."""
     if args.chunk is not None:
-        asked.append(f"--chunk {args.chunk} (the JAX package's Pallas chunk)")
-    if args.dp_views_per_device != 1:
-        asked.append(f"--dp_views_per_device {args.dp_views_per_device}")
-    if asked:
-        raise NotImplementedError("options of the JAX package not ported yet: "
-                                  + ", ".join(asked))
+        raise NotImplementedError(f"options of the JAX package not ported yet: --chunk "
+                                  f"{args.chunk} (the JAX package's Pallas chunk)")
 
 
 def extract_configs(args) -> TrainConfig:
@@ -95,7 +99,8 @@ def extract_configs(args) -> TrainConfig:
         budget_factor=args.budget_factor,
         allow_budget_truncation=args.allow_budget_truncation,
         **{name: getattr(args, name) for name in (
-            "debug", "interpret", "depth_shards", "data_shards", "gauss_shards", "zero2")})
+            "debug", "interpret", "depth_shards", "data_shards", "gauss_shards", "zero2",
+            "dp_views_per_device")})
     optimization = OptimizationConfig(**{
         f: getattr(args, f) for f in OptimizationConfig.__dataclass_fields__
         if hasattr(args, f)})

@@ -73,6 +73,10 @@ def main(argv=None):
     from langsplat_tpu_torch.models import field_io
 
     device = resolve_device(args.device)
+    if args.dp_views_per_device != 1:
+        raise NotImplementedError(
+            f"--dp_views_per_device {args.dp_views_per_device}: views a rank of a "
+            f"multi-device training run; the render CLI renders one view at a time")
     cfg = extract_configs(args)
     # merge the saved run config, as the JAX render CLI does
     saved = os.path.join(cfg.model.model_path, "cfg_args.json")

@@ -2,10 +2,9 @@
 
 PyTorch-port counterpart of `langsplat_tpu/config.py`: the same parameter names and
 defaults, so a run config (`cfg_args.json`) written by either package loads in the
-other. Keys this package has no use for (the Pallas chunk, `dp_views_per_device`) are
-not fields here and are ignored when a file holds them. `interpret` selects the tiled
-backend, as in the JAX package. The multi-device options are fields, so that the
-training loop can refuse them until the port has a parallel path.
+other. A key this package has no use for (the Pallas chunk) is not a field here and is
+ignored when a file holds it. `interpret` selects the tiled backend, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -49,12 +48,13 @@ class PipelineConfig:
                                            # of failing loudly
     debug: bool = False                # per-step budget/drop diagnostics
     interpret: bool = False            # blend with the tiled backend (ops/rasterize_tiled)
-    # multi-device training (the JAX package's device meshes); the port trains on one
-    # device and refuses values above 1 until its parallel slice
+    # multi-device training, one process per rank (parallel/): phase-B depth shards,
+    # data-parallel ranks (views a rank a step; ZeRO-2 optimizer rows), Gaussian shards
     depth_shards: int = 0
     data_shards: int = 0
     gauss_shards: int = 0
     zero2: bool = False
+    dp_views_per_device: int = 1
 
 
 @dataclass

@@ -5,7 +5,8 @@ PyTorch-port counterpart of `langsplat_tpu/data/scene.py` at resolution scale 1:
 dataset-type dispatch by directory shape, the `input.ply` copy and `cameras.json` dump
 on a fresh run, the seeded camera shuffle, the NeRF++ extent, the field created from
 the SfM points at `initial_capacity_factor` times their count (or a trained
-iteration's `point_cloud/iteration_<N>/point_cloud.ply`), and `save`.
+iteration's `point_cloud/iteration_<N>/point_cloud.ply`; neither with
+`create_field=False`, for a caller that loads a checkpoint), and `save`.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from langsplat_tpu_torch.models.gaussian_field import GaussianField, create_from
 class Scene:
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device,
                  load_iteration: int | None = None, shuffle: bool = True,
-                 initial_capacity_factor: float = 1.5, seed: int = 0):
+                 initial_capacity_factor: float = 1.5, seed: int = 0,
+                 create_field: bool = True):
         self.model_path = cfg.model_path
         self.loaded_iter = None
         if load_iteration is not None:
@@ -70,6 +72,8 @@ class Scene:
                 os.path.join(self.model_path, "point_cloud",
                              f"iteration_{self.loaded_iter}", "point_cloud.ply"),
                 device=device)
+        elif not create_field:
+            self.gaussians = None     # the caller loads a checkpoint: no 3-NN
         else:
             pts, cols, _ = info.point_cloud
             self.gaussians = create_from_pcd(

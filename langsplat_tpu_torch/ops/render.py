@@ -102,29 +102,14 @@ def render(
     if screenspace_offset is not None:
         means2d = means2d + screenspace_offset
 
-    features = None
-    if settings.include_feature:
-        lf = field.get_language_feature
-        # epsilon inside the sqrt: keeps the gradient finite at lf == 0
-        norm = torch.sqrt(torch.sum(lf * lf, dim=-1, keepdim=True) + 1e-18)
-        features = lf / (norm + 1e-9)
-
+    features = unit_features(field) if settings.include_feature else None
     opac = field.get_opacity[:, 0]
     inst = bin_gaussians(
         PreprocessOut(*(t.detach() for t in prep)),
         grid_x=settings.grid_x, grid_y=settings.grid_y,
         budget=budget, max_tiles_per_gaussian=settings.max_tiles_per_gaussian,
         tile_size=settings.tile_size, opacities=opac.detach())
-    blend_kw = dict(image_height=settings.image_height, image_width=settings.image_width,
-                    tile_size=settings.tile_size, means2d_override=means2d,
-                    grad_mode=settings.grad_mode)
-    if settings.backend == "tiled":
-        out = rasterize_tiled(prep, inst, opac, features, bg_color,
-                              max_per_tile=settings.max_per_tile, **blend_kw)
-    elif settings.backend == "cuda":
-        out = rasterize(prep, inst, opac, features, bg_color, **blend_kw)
-    else:
-        raise ValueError(f"backend must be 'cuda' or 'tiled', got {settings.backend!r}")
+    out = blend(prep, inst, opac, features, bg_color, settings, means2d_override=means2d)
 
     out["radii"] = prep.radii
     out["visibility_filter"] = prep.radii > 0
@@ -135,6 +120,31 @@ def render(
             (1,) + out["render"].shape[1:], dtype=out["render"].dtype,
             device=out["render"].device)
     return out
+
+
+def unit_features(field) -> torch.Tensor:
+    """The field's language features scaled to unit length, as the blend takes them."""
+    lf = field.get_language_feature
+    # epsilon inside the sqrt: keeps the gradient finite at lf == 0
+    norm = torch.sqrt(torch.sum(lf * lf, dim=-1, keepdim=True) + 1e-18)
+    return lf / (norm + 1e-9)
+
+
+def blend(prep: PreprocessOut, inst, opacities, features, bg, settings: RenderSettings,
+          *, image_height: int | None = None,
+          means2d_override: torch.Tensor | None = None) -> dict:
+    """The tile blend of binned instances with `settings.backend`: "cuda"
+    (`rasterize_cuda.rasterize`) or "tiled"; `image_height` overrides the settings' (a
+    band of tile rows)."""
+    kw = dict(image_height=image_height or settings.image_height,
+              image_width=settings.image_width, tile_size=settings.tile_size,
+              means2d_override=means2d_override, grad_mode=settings.grad_mode)
+    if settings.backend == "tiled":
+        return rasterize_tiled(prep, inst, opacities, features, bg,
+                               max_per_tile=settings.max_per_tile, **kw)
+    if settings.backend == "cuda":
+        return rasterize(prep, inst, opacities, features, bg, **kw)
+    raise ValueError(f"backend must be 'cuda' or 'tiled', got {settings.backend!r}")
 
 
 def count_instances(field, settings: RenderSettings, viewmatrix, projmatrix,

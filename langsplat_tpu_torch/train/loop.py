@@ -11,14 +11,16 @@ discarded and re-run at grown caps, as the JAX loop does.
 With `gui_port`, each iteration first serves the SIBR viewer (`utils/network_gui.py`).
 With `cfg.profile_dir`, a `torch.profiler` trace of iterations [profile_from,
 profile_from + profile_steps) is written there as a Chrome / TensorBoard trace JSON.
-The JAX loop's multi-device branches (depth-, data- and Gaussian-sharded training) are
-not ported yet: `training` refuses those options.
+The JAX loop's multi-device branches (data-parallel with ZeRO-2, Gaussian-sharded with
+shard-local densification, depth-sharded phase B) run inside a process group, one
+process per rank (`parallel/launch.py`, `parallel/layout.py`).
 """
 
 from __future__ import annotations
 
 import os
 import random
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -29,9 +31,14 @@ from langsplat_tpu_torch.data.prefetch import FeaturePrefetcher
 from langsplat_tpu_torch.data.scene import Scene
 from langsplat_tpu_torch.device import resolve_device
 from langsplat_tpu_torch.models import field_io
-from langsplat_tpu_torch.models.gaussian_field import grow_capacity
 from langsplat_tpu_torch.ops import _build
 from langsplat_tpu_torch.ops.render import RenderSettings, count_instances, render
+from langsplat_tpu_torch.parallel import collectives as col
+from langsplat_tpu_torch.parallel.data_parallel import dp_train_step
+from langsplat_tpu_torch.parallel.depth_sharded import depth_feature_step
+from langsplat_tpu_torch.parallel.gauss_densify import sharded_densify
+from langsplat_tpu_torch.parallel.gauss_sharded import gauss_train_step
+from langsplat_tpu_torch.parallel.layout import Layout
 from langsplat_tpu_torch.train import densify as dn
 from langsplat_tpu_torch.train import trainer as tr
 from langsplat_tpu_torch.utils.logging import RunLogger, Timer
@@ -189,17 +196,6 @@ def _camera_tensors(cam, device):
         cam.world_view_transform, cam.full_proj_transform, cam.camera_center))
 
 
-def _refuse_unported(cfg: TrainConfig) -> None:
-    pipe = cfg.pipeline
-    asked = [f"--{name} {getattr(pipe, name)}" for name in
-             ("depth_shards", "data_shards", "gauss_shards") if getattr(pipe, name) > 1]
-    if pipe.zero2:
-        asked.append("--zero2")
-    if asked:
-        raise NotImplementedError(
-            "the PyTorch port trains on one device; not ported yet: " + ", ".join(asked))
-
-
 class TraceWindow:
     """A `torch.profiler` trace over a window of training iterations: CPU activity, and
     the card's with a CUDA device; no shapes or stacks (a step makes ~10^4 host
@@ -231,22 +227,46 @@ class TraceWindow:
         self.profiler.stop()
 
 
+def _views(cams, device):
+    """The camera matrices of a list of cameras: (views, projections, centers) lists."""
+    mats = [_camera_tensors(c, device) for c in cams]
+    return [m[0] for m in mats], [m[1] for m in mats], [m[2] for m in mats]
+
+
+def _state_hashes(layout, field, opt_state, stats) -> list[str]:
+    """Every rank's hash of the state its layout replicates; raises if they differ."""
+    hashes = col.gather_object(layout.replicated_hash(field, opt_state, stats),
+                               layout.group)
+    if len(set(hashes)) != 1:
+        raise RuntimeError(f"the replicated training state differs across ranks: "
+                           f"{hashes}")
+    return hashes
+
+
 def training(cfg: TrainConfig, device: str | torch.device | None = None,
              gui_host: str = "127.0.0.1", gui_port: int = 0,
              gui_wait: float = 0.0) -> dict:
     """Train one phase on `device` (None: the CUDA card, raising without one), serving
     the viewer on gui_host:gui_port when gui_port is set; with gui_wait, the first step
     waits up to that many seconds for the viewer to connect. Returns the final field,
-    optimizer state, statistics, scene, loss history, active SH degree and the profiler
-    trace (`TraceWindow.stop`'s record, None without one)."""
+    optimizer state, statistics (full capacity, gathered), scene, loss history, active
+    SH degree, the profiler trace (`TraceWindow.stop`'s record, None without one) and
+    `parallel`: this rank's layout, step times, collective times, peak memory, kernel
+    launches and the replicated state's hashes.
+
+    Inside a process group (`parallel/launch.py`), this is one rank of a multi-device
+    run (`parallel/layout.py`): every rank runs this loop; rank 0 alone writes the
+    configuration, PLY files, checkpoints, log, trace and serves the viewer."""
     device = resolve_device(device)
-    _refuse_unported(cfg)
     mcfg, ocfg, pipe = cfg.model, cfg.optimization, cfg.pipeline
     include_feature = ocfg.include_feature
-    logger = RunLogger(mcfg.model_path or None, quiet=cfg.quiet)
+    layout = Layout.from_config(pipe, include_feature, device)
+    main = layout.is_main
+    logger = RunLogger(mcfg.model_path if main else None, quiet=cfg.quiet or not main)
 
-    scene = Scene(mcfg, device=device,
-                  initial_capacity_factor=ocfg.initial_capacity_factor, seed=cfg.seed)
+    scene = Scene(mcfg if main else replace(mcfg, model_path=""), device=device,
+                  initial_capacity_factor=ocfg.initial_capacity_factor, seed=cfg.seed,
+                  create_field=not cfg.start_checkpoint)
     field = scene.gaussians
     spatial_lr_scale = scene.cameras_extent
     active_sh_degree = 0
@@ -279,7 +299,7 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
         logger.log(f"resumed full training state at iteration {first_iter} "
                    f"(capacity {field.capacity})")
 
-    if mcfg.model_path:
+    if mcfg.model_path and main:
         save_config(cfg, os.path.join(mcfg.model_path, "cfg_args.json"))
 
     bg = torch.tensor([1.0, 1.0, 1.0] if mcfg.white_background else [0.0, 0.0, 0.0],
@@ -298,39 +318,56 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
         logger.log(f"instance budget {budget_policy.budget} "
                    f"(probed {cnt}, cap {budget_policy.cap(field.capacity)})")
 
+    # the full state is identical on every rank here; lay it out over the ranks
+    field, opt_state, stats = layout.setup(field, opt_state, stats)
+    capacity = layout.capacity(field)
+    if layout.kind is not None:
+        logger.log(f"{layout.kind}-parallel over {layout.world} rank(s) "
+                   f"({col.backend(layout.group)}), capacity {capacity}"
+                   + (", ZeRO-2 optimizer rows" if layout.zero2 else ""))
+
     # per-epoch camera order, a pure function of (seed, epoch), so a resumed run sees
     # the view sequence an uninterrupted run would (the JAX package's schedule)
     train_cams = scene.get_train_cameras()
     cur_epoch, epoch_order = -1, []
 
-    def cam_at(iteration: int):
+    def schedule_cam(idx: int):
         nonlocal cur_epoch, epoch_order
-        epoch, pos = divmod(iteration - 1, len(train_cams))
+        epoch, pos = divmod(idx, len(train_cams))
         if epoch != cur_epoch:
             epoch_order = list(range(len(train_cams)))
             random.Random(cfg.seed * 1_000_003 + epoch).shuffle(epoch_order)
             cur_epoch = epoch
         return train_cams[epoch_order[pos]], pos
 
+    # data-parallel batches: iteration i takes schedule positions
+    # [(i-1) B, i B), B = world * views a rank, and rank r the r-th slice of them
+    dp_batch = layout.world * layout.views_per_rank
+
+    def rank_cams(iteration: int) -> list:
+        first = (iteration - 1) * dp_batch + layout.rank * layout.views_per_rank
+        return [schedule_cam(first + j)[0] for j in range(layout.views_per_rank)]
+
     timer = Timer(device)
     history: list[float] = []
+    step_ms: list[float] = []
     prefetcher = (FeaturePrefetcher(mcfg.lf_path, mcfg.feature_level, device=device)
                   if include_feature else None)
 
-    def gui_render(minicam, scale_mod):
+    def gui_render(view_field, minicam, scale_mod):
         settings = RenderSettings(
             image_height=minicam.height, image_width=minicam.width,
             tanfovx=minicam.tanfovx, tanfovy=minicam.tanfovy,
             sh_degree=active_sh_degree, include_feature=False,
             scale_modifier=float(scale_mod), tile_size=pipe.tile_size,
-            budget=pipe.budget_factor * field.capacity,
+            budget=pipe.budget_factor * view_field.capacity,
             backend="tiled" if pipe.interpret else "cuda")
         with torch.no_grad():
-            return render(field, settings, *_camera_tensors(minicam, device),
+            return render(view_field, settings, *_camera_tensors(minicam, device),
                           bg)["render"]
 
     gui = None
-    if gui_port:
+    if gui_port and main:
         from langsplat_tpu_torch.utils.network_gui import NetworkGUI
         gui = NetworkGUI()
         try:
@@ -342,10 +379,13 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
             gui.close()
             gui = None
 
+    col.reset()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     window, trace = None, None
     try:
         for iteration in range(first_iter + 1, ocfg.iterations + 1):
-            if cfg.profile_dir:
+            if cfg.profile_dir and main:
                 if iteration == cfg.profile_from:
                     window = TraceWindow(device, iteration)
                 elif (window is not None
@@ -354,32 +394,92 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
                     window = None
                     logger.log(f"profiler trace ({cfg.profile_steps} steps) written to "
                                f"{trace['path']}")
-            if gui is not None:
-                gui.poll(gui_render, mcfg.source_path, iteration, ocfg.iterations)
+            if gui_port:
+                view_field = field
+                if layout.kind == "gauss":
+                    # the viewer renders the whole field, which no rank holds: gather
+                    # it for every frame of an iteration a viewer is connected in
+                    if gui is not None and gui.conn is None:
+                        gui.try_connect()
+                    connected = col.max_(torch.tensor(
+                        [int(gui is not None and gui.conn is not None)], device=device))
+                    view_field = layout.full_field(field) if int(connected[0]) else None
+                if gui is not None:
+                    gui.poll(lambda c, s: gui_render(view_field, c, s),
+                             mcfg.source_path, iteration, ocfg.iterations)
 
             if iteration % 1000 == 0 and active_sh_degree < mcfg.sh_degree:
                 active_sh_degree += 1
 
-            cam, epoch_pos = cam_at(iteration)
-            if prefetcher is not None and epoch_pos + 1 < len(train_cams):
-                prefetcher.schedule(train_cams[epoch_order[epoch_pos + 1]])
-            view, proj, campos = _camera_tensors(cam, device)
+            if layout.kind == "data":
+                batch = [schedule_cam((iteration - 1) * dp_batch + j)[0]
+                         for j in range(dp_batch)]
+                cam = batch[0]
+                for c in batch[1:]:
+                    if (c.height, c.width) != (cam.height, cam.width):
+                        raise ValueError(
+                            "data-parallel training requires uniform image sizes across "
+                            f"the view batch, got {c.height}x{c.width} vs "
+                            f"{cam.height}x{cam.width}")
+                mine = rank_cams(iteration)
+                if prefetcher is not None:
+                    for c in mine + rank_cams(iteration + 1):
+                        prefetcher.schedule(c)
+                views = _views(mine, device)
+            else:
+                cam, epoch_pos = schedule_cam(iteration - 1)
+                if prefetcher is not None and epoch_pos + 1 < len(train_cams):
+                    prefetcher.schedule(train_cams[epoch_order[epoch_pos + 1]])
+                mine = [cam]
+                views = _views(mine, device)
+
+            def targets():
+                if include_feature:
+                    fm = [prefetcher.get(c) for c in mine]
+                    return [f for f, _ in fm], [m for _, m in fm]
+                return ([_device_image(c, device) for c in mine],
+                        [torch.ones((1, 1, 1), device=device)] * len(mine))
 
             timer.start()
             while True:
                 settings = make_settings(cam, pipe, active_sh_degree, include_feature,
-                                         field.capacity, budget=budget_policy.budget,
+                                         capacity, budget=budget_policy.budget,
                                          max_tiles=tmax_policy.tmax)
-                if include_feature:
+                step_kw = dict(settings=settings, optimizer=optimizer,
+                               include_feature=include_feature,
+                               lambda_dssim=ocfg.lambda_dssim)
+                if layout.kind == "data":
+                    o = dp_train_step(field, opt_state, stats, *views, *targets(), bg,
+                                      group=layout.group, zero2=layout.zero2, **step_kw)
+                    out = tr.StepOutput(o.field, o.opt_state, o.stats, o.loss, o.loss,
+                                        torch.zeros(()), o.dropped, o.rect_dropped)
+                elif layout.kind == "gauss":
+                    o = gauss_train_step(field, opt_state, stats, *views, *targets(), bg,
+                                         capacity=capacity, gauss_group=layout.group,
+                                         **step_kw)
+                    out = tr.StepOutput(o.field, o.opt_state, o.stats, o.loss, o.loss,
+                                        torch.zeros(()), o.dropped, o.rect_dropped)
+                elif layout.kind == "depth":
                     gt_feat, gt_mask = prefetcher.get(cam)
-                    out = tr.train_step_feature(field, opt_state, stats, view, proj,
-                                                campos, gt_feat, gt_mask, bg,
-                                                settings=settings, optimizer=optimizer)
+                    nf, no, dloss, ddrop, drect = depth_feature_step(
+                        field, opt_state, *(m[0] for m in views), gt_feat, gt_mask, bg,
+                        settings=settings, optimizer=optimizer, group=layout.group)
+                    out = tr.StepOutput(nf, no, stats, dloss, dloss, torch.zeros(()),
+                                        ddrop, drect)
+                elif include_feature:
+                    gt_feat, gt_mask = prefetcher.get(cam)
+                    out = tr.train_step_feature(field, opt_state, stats,
+                                                *(m[0] for m in views), gt_feat, gt_mask,
+                                                bg, settings=settings,
+                                                optimizer=optimizer)
                 else:
-                    out = tr.train_step_rgb(field, opt_state, stats, view, proj, campos,
+                    out = tr.train_step_rgb(field, opt_state, stats,
+                                            *(m[0] for m in views),
                                             _device_image(cam, device), bg,
                                             settings=settings, optimizer=optimizer,
                                             lambda_dssim=ocfg.lambda_dssim)
+                # multi-device steps report the group's summed counts, so every rank
+                # decides to retry alike
                 dropped, rect = int(out.dropped), int(out.rect_dropped)
                 if dropped == 0 and rect == 0:
                     break
@@ -390,15 +490,15 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
                     logger.log(f"[iter {iteration}] max_tiles_per_gaussian -> "
                                f"{tmax_policy.tmax} ({rect} rect positions dropped)")
                     grew = True
-                if dropped > 0 and budget_policy.grow(field.capacity):
+                if dropped > 0 and budget_policy.grow(capacity):
                     logger.log(f"[iter {iteration}] instance budget -> "
                                f"{budget_policy.budget} ({dropped} dropped)")
                     grew = True
                 if not grew:
                     msg = (f"[iter {iteration}] {dropped} instances dropped at the "
-                           f"budget cap {budget_policy.cap(field.capacity)} and {rect} "
+                           f"budget cap {budget_policy.cap(capacity)} and {rect} "
                            f"rect positions dropped at max_tiles={tmax_policy.tmax} "
-                           f"(capacity {field.capacity}, budget_factor "
+                           f"(capacity {capacity}, budget_factor "
                            f"{pipe.budget_factor}); raise pipeline.budget_factor, or opt "
                            f"into truncation with pipeline.allow_budget_truncation")
                     if not pipe.allow_budget_truncation:
@@ -407,12 +507,13 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
                     break
             field, opt_state, stats = out.field, out.opt_state, out.stats
             elapsed = timer.stop()
+            step_ms.append(elapsed)
 
             loss_val = float(out.loss)
             if pipe.debug:
                 logger.log(f"[iter {iteration}] debug: budget={budget_policy.budget} "
-                           f"cap={budget_policy.cap(field.capacity)} dropped={dropped} "
-                           f"alive={field.num_alive}/{field.capacity}")
+                           f"cap={budget_policy.cap(capacity)} dropped={dropped} "
+                           f"alive={field.num_alive}/{field.capacity} (this rank)")
             history.append(loss_val)
             logger.progress(iteration, loss_val,
                             extra=f" n={field.num_alive} {elapsed:.0f}ms")
@@ -425,63 +526,83 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
                 if (iteration > ocfg.densify_from_iter
                         and iteration % ocfg.densification_interval == 0):
                     # the split noise is a pure function of (seed, iteration), so a
-                    # resumed run draws what an uninterrupted run would
+                    # resumed run, and every rank, draws what an uninterrupted run would
                     gen = torch.Generator(device).manual_seed(
                         cfg.seed * 1_000_003 + iteration)
-                    res = dn.densify_and_prune(
-                        field, stats, gen, extent=scene.cameras_extent,
-                        grad_threshold=ocfg.densify_grad_threshold,
-                        percent_dense=ocfg.percent_dense, min_opacity=0.005,
-                        use_size_threshold=iteration > ocfg.opacity_reset_interval,
-                        size_threshold=20.0)
+                    rule = dict(extent=scene.cameras_extent,
+                                grad_threshold=ocfg.densify_grad_threshold,
+                                percent_dense=ocfg.percent_dense, min_opacity=0.005,
+                                use_size_threshold=iteration > ocfg.opacity_reset_interval,
+                                size_threshold=20.0)
+                    if layout.kind == "gauss":
+                        # shard-local slots, serial-equal decisions
+                        noise = torch.randn((capacity, 2, 3), generator=gen,
+                                            dtype=field.xyz.dtype, device=device)
+                        res = sharded_densify(field, stats, noise, group=layout.group,
+                                              **rule)
+                    else:
+                        res = dn.densify_and_prune(field, stats, gen, **rule)
                     field, stats = res.field, res.stats
-                    opt_state = tr.zero_moment_rows(opt_state, res.reset_mask)
+                    opt_state = tr.zero_moment_rows(opt_state,
+                                                    layout.local_mask(res.reset_mask))
                     overflow = int(res.overflow)
                     if overflow > 0:
-                        old_cap = field.capacity
-                        new_cap = int(old_cap * ocfg.capacity_growth_factor)
-                        logger.log(f"[iter {iteration}] capacity {old_cap} -> {new_cap} "
+                        new_cap = layout.round_capacity(
+                            int(capacity * ocfg.capacity_growth_factor))
+                        logger.log(f"[iter {iteration}] capacity {capacity} -> {new_cap} "
                                    f"(overflow {overflow})")
-                        field = grow_capacity(field, new_cap)
-                        opt_state = tr.pad_opt_state(opt_state, old_cap, new_cap)
-                        stats = dn.DensifyStats.zeros(new_cap, device)
+                        field, opt_state, stats = layout.grow(field, opt_state, new_cap)
+                        capacity = new_cap
                     logger.scalar("total_points", int(res.num_alive), iteration)
 
                 if iteration % ocfg.opacity_reset_interval == 0 or (
                         mcfg.white_background and iteration == ocfg.densify_from_iter):
                     field = dn.reset_opacity(field)
+                    rows = opt_state["opacity"]["mu"].shape[0]
                     opt_state = tr.zero_moment_rows(
-                        opt_state, torch.ones(field.capacity, dtype=torch.bool,
-                                              device=device), only_label="opacity")
+                        opt_state, torch.ones(rows, dtype=torch.bool, device=device),
+                        only_label="opacity")
 
-            if iteration in cfg.test_iterations:
-                report = evaluate_psnr(field, scene, pipe, active_sh_degree,
-                                       include_feature, bg, budget=budget_policy.budget,
-                                       max_tiles=tmax_policy.tmax,
-                                       lf_path=mcfg.lf_path if include_feature else None,
-                                       feature_level=mcfg.feature_level)
-                for name, rep in report.items():
-                    logger.log(f"[ITER {iteration}] Evaluating {name}: L1 "
-                               f"{rep['l1']:.5f} PSNR {rep['psnr']:.3f}")
-                    logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"],
-                                  iteration)
-                    logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"],
-                                  iteration)
-                    if rep.get("feature_l1") is not None:
-                        logger.log(f"[ITER {iteration}] Evaluating {name}: feature-L1 "
-                                   f"{rep['feature_l1']:.5f}")
-                        logger.scalar(f"{name}/loss_viewpoint - feature_l1",
-                                      rep["feature_l1"], iteration)
+            saving = (iteration in cfg.test_iterations
+                      or (iteration in cfg.save_iterations and mcfg.model_path)
+                      or (iteration in cfg.checkpoint_iterations and mcfg.model_path))
+            if saving:
+                # every rank joins the gather; rank 0 reports and writes, the others
+                # wait for it at the barrier
+                full_field, full_opt, full_stats = layout.full(field, opt_state, stats)
+            if saving and main:
+                if iteration in cfg.test_iterations:
+                    report = evaluate_psnr(
+                        full_field, scene, pipe, active_sh_degree, include_feature, bg,
+                        budget=budget_policy.budget, max_tiles=tmax_policy.tmax,
+                        lf_path=mcfg.lf_path if include_feature else None,
+                        feature_level=mcfg.feature_level)
+                    for name, rep in report.items():
+                        logger.log(f"[ITER {iteration}] Evaluating {name}: L1 "
+                                   f"{rep['l1']:.5f} PSNR {rep['psnr']:.3f}")
+                        logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"],
+                                      iteration)
+                        logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"],
+                                      iteration)
+                        if rep.get("feature_l1") is not None:
+                            logger.log(f"[ITER {iteration}] Evaluating {name}: "
+                                       f"feature-L1 {rep['feature_l1']:.5f}")
+                            logger.scalar(f"{name}/loss_viewpoint - feature_l1",
+                                          rep["feature_l1"], iteration)
 
-            if iteration in cfg.save_iterations and mcfg.model_path:
-                logger.log(f"[ITER {iteration}] Saving Gaussians")
-                scene.save(iteration, field)
+                if iteration in cfg.save_iterations and mcfg.model_path:
+                    logger.log(f"[ITER {iteration}] Saving Gaussians")
+                    scene.save(iteration, full_field)
 
-            if iteration in cfg.checkpoint_iterations and mcfg.model_path:
-                logger.log(f"[ITER {iteration}] Saving Checkpoint")
-                field_io.save_checkpoint(
-                    os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"), field,
-                    opt_state, stats, iteration, spatial_lr_scale, active_sh_degree)
+                if iteration in cfg.checkpoint_iterations and mcfg.model_path:
+                    logger.log(f"[ITER {iteration}] Saving Checkpoint")
+                    field_io.save_checkpoint(
+                        os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"),
+                        full_field, full_opt, full_stats, iteration, spatial_lr_scale,
+                        active_sh_degree)
+            if saving:
+                del full_field, full_opt, full_stats
+                col.barrier(layout.group)
 
         if window is not None:    # the loop ended inside the window
             trace = window.stop(cfg.profile_dir, ocfg.iterations + 1)
@@ -495,8 +616,18 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
         if prefetcher is not None:
             prefetcher.close()
         logger.close()
+    hashes = _state_hashes(layout, field, opt_state, stats)
+    collective_ms = col.timings()
+    field, opt_state, stats = layout.full(field, opt_state, stats)
+    info = dict(kind=layout.kind, world=layout.world, rank=layout.rank,
+                backend=col.backend(layout.group), device=str(device),
+                step_ms=step_ms, collectives=collective_ms,
+                peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
+                                   if device.type == "cuda" else None),
+                launches=dict(_build.LAUNCHES), state_hashes=hashes)
     return {"field": field, "opt_state": opt_state, "stats": stats, "scene": scene,
-            "history": history, "active_sh_degree": active_sh_degree, "trace": trace}
+            "history": history, "active_sh_degree": active_sh_degree, "trace": trace,
+            "parallel": info}
 
 
 @torch.no_grad()

@@ -482,3 +482,17 @@ def test_tiled_backend_on_card(cuda_device, grad_mode):
         *rasterize_cuda.blend_args(prep, inst, opac, feats, bg), **size)
     assert float((out["render"].detach() - image[:3]).abs().max()) <= CARD_ATOL
     assert float((out["final_transmittance"].detach() - t_final).abs().max()) <= CARD_ATOL
+
+
+@pytest.mark.cuda
+def test_collectives_on_card_tensors(cuda_device):
+    """collectives.py on CUDA tensors: 2 gloo ranks sharing the card, each collective
+    and the differentiable all-gather's backward against the CPU arithmetic."""
+    from langsplat_tpu_torch.parallel import launch, runner
+
+    outs = launch.spawn(runner.run, ([("collectives_check", {"rows": 16, "cols": 7})],),
+                        2, device_type="cuda", backend="gloo", run_timeout=240)
+    for r, (out,) in enumerate(outs):
+        assert (out["world"], out["backend"]) == (2, "gloo")
+        assert out["device"].startswith("cuda"), out["device"]
+        assert max(out["errors"].values()) <= 1e-5, (r, out["errors"])

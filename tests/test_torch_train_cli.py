@@ -190,9 +190,7 @@ def test_train_cli_needs_a_card_unless_asked(scene, tmp_path, monkeypatch):
         torch_train_main(["-s", scene, "-m", str(tmp_path / "run"), *PHASE_A])
 
 
-@pytest.mark.parametrize("flags", [["--data_shards", "4"], ["--depth_shards", "2"],
-                                   ["--gauss_shards", "2"], ["--zero2"],
-                                   ["--chunk", "128"], ["--dp_views_per_device", "2"]])
+@pytest.mark.parametrize("flags", [["--chunk", "128"]])
 def test_unported_options_are_refused(scene, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         torch_train_main(["-s", scene, "-m", str(tmp_path / "run"), "--device", "cpu",
@@ -213,6 +211,23 @@ def test_interpret_trains_like_the_jax_cli(scene, jax_phase_a, tmp_path):
 TRACE_A = ["--no_include_feature", "--resolution", "1", "--iterations", "4", "--quiet",
            "--test_iterations", "99", "--save_iterations", "4",
            "--checkpoint_iterations", "99", "--sh_degree", "1"]
+
+
+@pytest.mark.parametrize("flags,world", [
+    (["--data_shards", "4"], 4), (["--depth_shards", "2"], 1),
+    (["--gauss_shards", "2"], 2), (["--zero2"], 1), (["--dp_views_per_device", "2"], 1)])
+def test_multi_device_options_train(scene, tmp_path, flags, world):
+    """The multi-device flags train (on the CPU through gloo, one process a rank);
+    as in the JAX package, --depth_shards is phase B's, --zero2 and
+    --dp_views_per_device need --data_shards, so in phase A alone they train on one
+    device. tests/test_torch_dp_loop.py and test_torch_parallel.py hold the runs."""
+    result = torch_train_main(["-s", scene, "-m", str(tmp_path / "run"), "--device", "cpu",
+                               *TRACE_A, *flags])
+    assert len(result["history"]) == 4 and all(np.isfinite(result["history"]))
+    assert result["parallel"]["world"] == world
+    assert len(result.get("ranks", [result["parallel"]])) == world
+    assert os.path.exists(str(tmp_path / "run") + "_-1/point_cloud/iteration_4/"
+                                                  "point_cloud.ply")
 
 
 @pytest.mark.parametrize("window,iterations", [((2, 2), (2, 4)), ((3, 10), (3, 5))])
