@@ -112,9 +112,21 @@ Phases (any failure ends the run with a non-zero exit):
      end with bit-equal replicated state and launch K1-K3 at least once a step; per
      rank the step times (host clock), collective times (CUDA events), peak memory
      and backend are printed.
+  13. the quality protocol (`langsplat_tpu_torch.quality.run`, the `process.sh` +
+     `eval/eval.sh` pipeline on its synthetic scene) through every stage on the card at
+     the published scene (40 cameras at 960x720, 112k GT Gaussians, 28k initial
+     points, a 400-epoch AE), cut in depth only: phase A 2,500 iterations (tested at
+     2,500, before the first opacity reset), phase B 500 a level. K1-K3 must launch in
+     every training stage (phase A, each phase-B level); the test PSNR at 2,500 must be
+     at least the JAX run's 37.07 on the same scene less 2 dB; the port's oracle of
+     the JAX CLI's AE checkpoint of this scene (`quality/jax_ae/`) within 0.005 of the
+     JAX script's, localization equal; the port's own oracle mIoU at least 0.600 less
+     0.05 with localization 1.0 (a floor, not a band: the oracle follows the AE's
+     training run, which rounding steers, ROADMAP F4); the trained field's mIoU above
+     half the oracle's; and the report must hold every key of QUALITY_r04.json.
 The launch counters are zeroed before, and read after, each path (phases 3, 5 A and B,
-8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward; phase 12's
-ranks are fresh processes, whose counts start at zero). The line before the last is the
+8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward, each stage of
+13; phase 12's ranks are fresh processes, whose counts start at zero). The line before the last is the
 `kernels` JSON; the last line is the result JSON.
 It needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -2209,6 +2221,111 @@ def parallel_phase(train_scene: str, run_prefix: str, seed: int, device) -> dict
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the quality protocol (langsplat_tpu_torch/quality/) at reduced depth
+# ---------------------------------------------------------------------------
+
+QUALITY_A_ITERS = 2_500     # of the published 30,000: one test, before the first reset
+QUALITY_B_ITERS = 500       # of the published 5,000 a level
+# the JAX package's run of the same protocol on the same scene (QUALITY_r04.json)
+JAX_PSNR_AT_2500 = 37.071
+PSNR_MARGIN = 2.0
+# The oracle mIoU is a figure of the autoencoder's training run, which float rounding
+# steers (ROADMAP F4): the JAX package's AE from one init scores 0.600 on the TPU
+# (QUALITY_r04.json) and 0.660 on the CPU. So the eval is held to JAX's on one shared
+# checkpoint (the JAX CLI's AE of this scene, `quality/jax_ae/`, with the JAX script's
+# oracle of it, both from `quality_ae_crosscheck.sh jax`), and the port's own AE to the
+# JAX run's oracle less the margin: a floor against a collapsed AE, not a band.
+JAX_ORACLE_MIOU = 0.600283701259605
+ORACLE_MARGIN = 0.05
+SHARED_ORACLE_TOL = 0.005
+
+
+def quality_phase(tmp: str) -> dict:
+    """Phase 13: every stage of `python -m langsplat_tpu_torch.quality.run` on the card
+    at the published scene (40 cameras at 960x720, 112k GT Gaussians, 28k initial
+    points, a 400-epoch AE), cut in depth only: phase A to 2,500 iterations (tested
+    there, before the first opacity reset at 3,000), phase B to 500 a level. The launch
+    counters are zeroed before each stage and read after it (`run_stages`)."""
+    from langsplat_tpu_torch.quality import ae_compare
+    from langsplat_tpu_torch.quality import run as quality_run
+    from langsplat_tpu_torch.quality.scene import QualityParams
+
+    params = dataclasses.replace(QualityParams(), iters_a=QUALITY_A_ITERS,
+                                 iters_b=QUALITY_B_ITERS)
+    full = QualityParams()
+    log(f"phase 13 cuts: phase A {full.iters_a} -> {params.iters_a} iterations (tested "
+        f"at {params.test_every}, before the first opacity reset at "
+        f"{params.opacity_reset_interval}); phase B {full.iters_b} -> {params.iters_b} "
+        f"iterations a level; every other parameter as published ({params.n_cams} "
+        f"cameras at {params.width}x{params.height}, {params.gaussians_gt} GT Gaussians, "
+        f"{params.init_pts} initial points, a {params.ae_epochs}-epoch AE)")
+    ws = os.path.join(tmp, "quality")
+    report_path = os.path.join(ws, "QUALITY_phase13.json")
+    results = quality_run.run_stages(quality_run.Run(ws, params, None),
+                                     quality_run.STAGES, report_path)
+    rep = results["report"]
+    log("phase 13 stage seconds: " + json.dumps(rep["stage_seconds"]))
+    log("phase 13 launches: " + json.dumps(rep["launches"]))
+    jax_ae = os.path.join(os.path.dirname(quality_run.__file__), "jax_ae")
+    shared = ae_compare.oracle_of(quality_run.Run(ws, params, None),
+                                  os.path.join(jax_ae, "best.npz"), "jax_best")
+    with open(os.path.join(jax_ae, "oracle.json")) as fh:
+        shared_jax = json.load(fh)
+
+    # the report keeps every key of the JAX run's (QUALITY_r04.json)
+    with open(os.path.join(quality_run.REPO, "QUALITY_r04.json")) as fh:
+        reference = json.load(fh)
+    missing = [k for k in reference if k not in rep] + [
+        f"{sec}.{k}" for sec, keys in reference.items()
+        if isinstance(keys, dict) and sec in rep for k in keys if k not in rep[sec]]
+    runs = {"phaseA": params.iters_a,
+            **{f"phaseB_{lvl}": params.iters_b for lvl in quality_run.LEVELS}}
+    short = {}
+    for name, steps in runs.items():
+        got = (rep["launches"]["phaseA"] if name == "phaseA"
+               else rep["launches"]["phaseB_levels"][name[-1]])
+        short.update({f"{name}.{k}": got[k] for k in ("blend_fwd", "blend_bwd", "segsum")
+                      if got[k] < steps})
+    short.update({f"{st}.blend_fwd": rep["launches"][st]["blend_fwd"]
+                  for st in ("scene", "render") if rep["launches"][st]["blend_fwd"] < 1})
+    curve = rep["phase_a"]["psnr_curve"]
+    psnr = curve[-1]["psnr"] if curve and curve[-1]["iter"] == params.iters_a else None
+    oracle, ev = rep["eval_oracle"], rep["eval"]
+    checks = dict(
+        report_keys=not missing,
+        kernels_in_every_stage=not short,
+        psnr=psnr is not None and psnr >= JAX_PSNR_AT_2500 - PSNR_MARGIN,
+        oracle=oracle["miou"] >= JAX_ORACLE_MIOU - ORACLE_MARGIN
+        and oracle["localization_acc"] == 1.0,
+        shared_oracle=abs(shared["miou"] - shared_jax["miou"]) <= SHARED_ORACLE_TOL
+        and shared["localization_acc"] == shared_jax["localization_acc"],
+        eval=ev["miou"] > 0.5 * oracle["miou"])
+    summary = dict(
+        cuts=dict(iters_a=[full.iters_a, params.iters_a],
+                  iters_b=[full.iters_b, params.iters_b]),
+        psnr_at_2500=psnr, psnr_floor=JAX_PSNR_AT_2500 - PSNR_MARGIN,
+        final_test_psnr=rep["phase_a"]["final_test_psnr_mean"],
+        feature_l1=rep["phase_b"]["final_test_feature_l1"],
+        oracle=oracle, oracle_floor=JAX_ORACLE_MIOU - ORACLE_MARGIN,
+        oracle_minus_jax=oracle["miou"] - JAX_ORACLE_MIOU,
+        shared_oracle=dict(port=shared, jax=shared_jax, tol=SHARED_ORACLE_TOL,
+                           diff=shared["miou"] - shared_jax["miou"]),
+        eval=dict(miou=ev["miou"], localization_acc=ev["localization_acc"]),
+        eval_floor=0.5 * oracle["miou"], gaussians=rep["scene"]["gaussians_curve"],
+        stage_seconds=rep["stage_seconds"], launches=rep["launches"],
+        missing_keys=missing, short_launches=short, checks=checks)
+    log("phase 13: " + json.dumps(summary))
+    if not all(checks.values()):
+        raise RuntimeError(f"phase 13 failed {[k for k, v in checks.items() if not v]}: "
+                           f"PSNR at {params.iters_a} {psnr} (floor "
+                           f"{JAX_PSNR_AT_2500 - PSNR_MARGIN}), oracle {oracle} (floor "
+                           f"{JAX_ORACLE_MIOU - ORACLE_MARGIN}), the shared "
+                           f"checkpoint's oracle {shared} (JAX {shared_jax}), eval "
+                           f"{ev['miou']}, missing keys {missing}, short launches {short}")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2438,6 +2555,11 @@ def main() -> int:
         t0 = time.perf_counter()
         parallel = parallel_phase(train_scene, run_prefix, args.seed, device)
         log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+        # 13. the quality protocol at reduced depth
+        t0 = time.perf_counter()
+        quality = quality_phase(tmp)
+        log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     for ph in ("A", "B"):
         for key, err in train_timings[ph]["errors"].items():
             errors[key] = max(errors[key], err)
@@ -2456,7 +2578,9 @@ def main() -> int:
              "tiled_render": surface["tiled"]["render_launches"],
              "tiled_backward": surface["tiled"]["backward_launches"],
              **{f"parallel_{name}": run["launches"]
-                for name, run in parallel["runs"].items()}}
+                for name, run in parallel["runs"].items()},
+             **{f"quality_{st}": quality["launches"][st]
+                for st in ("scene", "phaseA", "phaseB", "render")}}
     launches = {k: sum(p[k] for p in paths.values()) for k in _build.LAUNCHES}
     by_path = {k: {name: p[k] for name, p in paths.items() if p[k]} for k in launches}
     # `max_abs_err` is absolute for every kernel; each is held to `tol` of the kind
@@ -2508,6 +2632,7 @@ def main() -> int:
     log("phase 10: " + json.dumps(preprocessing))
     log("phase 11: " + json.dumps(surface))
     log("phase 12: " + json.dumps(parallel))
+    log("phase 13: " + json.dumps(quality))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -125,6 +125,10 @@ def train_main(argv=None) -> dict:
     parser.add_argument("--eval_from_frac", type=float, default=0.95,
                         help="best-ckpt eval starts after this fraction of epochs")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--init_ckpt", type=str, default="",
+                        help="start from this checkpoint (either package's, e.g. the "
+                             "JAX CLI's init saved by --num_epochs 0) instead of the "
+                             "seeded init")
     _dims_args(parser)
     args = parser.parse_args(argv)
 
@@ -137,8 +141,13 @@ def train_main(argv=None) -> dict:
     print(f"dataset: {n} features of dim {data_np.shape[1]}")
     data = torch.from_numpy(data_np).to(device)
 
-    model = init_autoencoder(torch.Generator().manual_seed(args.seed), args.encoder_dims,
-                             args.decoder_dims, data.shape[1]).to(device)
+    if args.init_ckpt:
+        model = load_ae_checkpoint(args.init_ckpt, args.encoder_dims, args.decoder_dims,
+                                   data.shape[1]).to(device)
+    else:
+        model = init_autoencoder(torch.Generator().manual_seed(args.seed),
+                                 args.encoder_dims, args.decoder_dims,
+                                 data.shape[1]).to(device)
     step = TrainStep(model, args.lr)
 
     bs = args.batch_size

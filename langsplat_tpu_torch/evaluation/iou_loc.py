@@ -385,7 +385,9 @@ def eval_frame(sem_feat: np.ndarray, img_ann: dict, decode_fn, pos_embeds, neg_e
     lvl, h, w, c = sem_feat.shape
     positives = list(img_ann.keys())
     t0 = time.perf_counter()
-    restored = decode_fn(torch.as_tensor(sem_feat.reshape(-1, c)).to(device))
+    # float16 maps (as the quality protocol's oracle writes) decode in float32, as
+    # flax's Dense promotes them in the JAX package
+    restored = decode_fn(torch.as_tensor(sem_feat.reshape(-1, c)).to(device, torch.float32))
     restored = restored.reshape(lvl, h, w, -1)
     _sync(device)
     t1 = time.perf_counter()

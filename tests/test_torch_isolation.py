@@ -127,3 +127,41 @@ def test_the_single_device_surface_stands_alone():
     includes = [line.split(None, 1)[1] for line in native.SOURCE.read_text().splitlines()
                 if line.startswith("#include")]
     assert includes and all(i.startswith("<") for i in includes)
+
+
+def test_the_port_and_chip_smoke_import_no_opencv():
+    """The card machine has no OpenCV: no module of the port (the quality protocol's
+    polygon extraction included) and not chip_smoke.py imports cv2, and in an
+    interpreter that refuses it every module imports and the quality protocol's
+    contours still run."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    quality = {p.name for p in (PORT / "quality").glob("*.py")}
+    assert {"contours.py", "scene.py", "run.py"} <= quality
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in imported_modules(f)
+           if m.split(".")[0] == "cv2"]
+    assert bad == []
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = f"""
+import importlib, sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name == "cv2" or name.startswith("cv2."):
+            raise ImportError("the port imported " + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+for m in {modules!r} + ["chip_smoke"]:
+    importlib.import_module(m)
+import numpy as np
+from langsplat_tpu_torch.quality.contours import mask_to_polygons
+mask = np.zeros((20, 20), np.uint8)
+mask[3:15, 4:17] = 1
+print(mask_to_polygons(mask))
+assert "cv2" not in sys.modules
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert "[[[4, 3], [4, 14], [16, 14], [16, 3]]]" in proc.stdout
