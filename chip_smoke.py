@@ -2238,6 +2238,8 @@ PSNR_MARGIN = 2.0
 JAX_ORACLE_MIOU = 0.600283701259605
 ORACLE_MARGIN = 0.05
 SHARED_ORACLE_TOL = 0.005
+# the iterations whose Gaussian counts phase 13 prints beside the JAX run's
+GAUSSIAN_CURVE_ITERS = (1_000, 1_500, 2_000, 2_500)
 
 
 def quality_phase(tmp: str) -> dict:
@@ -2288,6 +2290,16 @@ def quality_phase(tmp: str) -> dict:
                       if got[k] < steps})
     short.update({f"{st}.blend_fwd": rep["launches"][st]["blend_fwd"]
                   for st in ("scene", "render") if rep["launches"][st]["blend_fwd"] < 1})
+    # the Gaussian counts beside the JAX run's, which started from the field its KNN
+    # gave at the TPU's bfloat16 matmul precision (PERF.md; `scripts/densify_ab.py`)
+    port_n = {e["iter"]: e["n"] for e in rep["scene"]["gaussians_curve"]}
+    jax_n = {e["iter"]: e["n"] for e in reference["scene"]["gaussians_curve"]}
+    gaussians_vs_jax = {it: dict(port=port_n.get(it), jax=jax_n[it],
+                                 ratio=port_n[it] / jax_n[it] if it in port_n else None)
+                        for it in GAUSSIAN_CURVE_ITERS}
+    log("phase 13 Gaussians, port against JAX (QUALITY_r04.json): " + "; ".join(
+        f"{it}: {v['port']} / {v['jax']} = {v['ratio']:.3f}" if v["ratio"] else
+        f"{it}: missing" for it, v in gaussians_vs_jax.items()))
     curve = rep["phase_a"]["psnr_curve"]
     psnr = curve[-1]["psnr"] if curve and curve[-1]["iter"] == params.iters_a else None
     oracle, ev = rep["eval_oracle"], rep["eval"]
@@ -2312,6 +2324,7 @@ def quality_phase(tmp: str) -> dict:
                            diff=shared["miou"] - shared_jax["miou"]),
         eval=dict(miou=ev["miou"], localization_acc=ev["localization_acc"]),
         eval_floor=0.5 * oracle["miou"], gaussians=rep["scene"]["gaussians_curve"],
+        gaussians_vs_jax=gaussians_vs_jax,
         stage_seconds=rep["stage_seconds"], launches=rep["launches"],
         missing_keys=missing, short_launches=short, checks=checks)
     log("phase 13: " + json.dumps(summary))

@@ -9,8 +9,10 @@ collectives as `collectives.py` calls.
     `target(*args)` in it; `target` must be a module-level function of this package, so
     it pickles by reference and a child imports nothing else. It returns every rank's
     return value (pickled through files in a temporary directory). A rank that raises
-    ends the run: the others are terminated and `RankFailed` carries the first failing
-    rank's traceback; a run that outlives `run_timeout` is terminated too.
+    ends the run: the others are terminated and `RankFailed` carries the traceback of
+    the rank that failed first (each failing rank stamps its own, so a peer whose
+    collective broke when that rank exited is not taken for it); a run that outlives
+    `run_timeout` is terminated too.
   - Under `torchrun` (RANK and WORLD_SIZE set), `init_from_env` sets the process up in
     place.
   - Rank r uses `cuda:{r % device_count}`, or the CPU when asked for it.
@@ -27,6 +29,7 @@ import os
 import shutil
 import tempfile
 import time
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -114,8 +117,31 @@ def _child(rank, world, workdir, backend, device_type, threads, timeout, target,
         path = os.path.join(workdir, f"rank{rank}.pt")
         torch.save(result, path + ".tmp")
         os.replace(path + ".tmp", path)
+    except BaseException:
+        # stamped before this rank exits: a peer whose collective breaks when it does
+        # fails later, so `spawn` can name the rank that failed first
+        path = os.path.join(workdir, f"rank{rank}.err")
+        with open(path + ".tmp", "w") as fh:
+            fh.write(f"{time.time_ns()}\n{traceback.format_exc()}")
+        os.replace(path + ".tmp", path)
+        raise
     finally:
         dist.destroy_process_group()
+
+
+def _first_failure(workdir: str) -> str | None:
+    """'rank r raised:' and the traceback of the rank that failed first, from the
+    stamped files of `_child`; None when no rank left one."""
+    found = []
+    for name in os.listdir(workdir):
+        if name.startswith("rank") and name.endswith(".err"):
+            with open(os.path.join(workdir, name)) as fh:
+                stamp, _, trace = fh.read().partition("\n")
+            found.append((int(stamp), int(name[4:-4]), trace))
+    if not found:
+        return None
+    _, rank, trace = min(found)
+    return f"rank {rank} raised:\n{trace}"
 
 
 def spawn(target, args: tuple, world: int, *, device_type: str = "cuda",
@@ -141,7 +167,9 @@ def spawn(target, args: tuple, world: int, *, device_type: str = "cuda",
                     raise RankFailed(f"the {world}-rank run outlived its "
                                      f"{run_timeout:.0f} s and was terminated")
         except mp.ProcessRaisedException as e:
-            raise RankFailed(f"rank {e.error_index} raised:\n{e}") from None
+            # the exception `join` met first may be a peer's broken collective
+            raise RankFailed(_first_failure(workdir)
+                             or f"rank {e.error_index} raised:\n{e}") from None
         except mp.ProcessExitedException as e:
             raise RankFailed(f"rank {e.error_index} exited with code {e.exit_code}"
                              ) from None

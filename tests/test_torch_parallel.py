@@ -14,7 +14,8 @@ rounding-level gradient differences stay rounding-level), densify decisions equa
   - the sharded densify's decisions against the serial rule, and its conservative
     overflow;
   - every collective and the gather's backward against the CPU arithmetic; the mesh
-    factorization; a failing rank ends the run; NCCL refuses more ranks than cards.
+    factorization; a failing rank ends the run, named by the first stamped failure;
+    NCCL refuses more ranks than cards.
 """
 
 import dataclasses
@@ -508,6 +509,20 @@ def test_a_failing_rank_ends_the_run():
     with pytest.raises(launch.RankFailed, match="KeyError: 'no_such_task'"):
         launch.spawn(runner.run, ([("collectives_check", {}), ("no_such_task", {})],),
                      2, device_type="cpu", threads=1, run_timeout=60)
+
+
+def test_the_rank_that_failed_first_is_named(tmp_path):
+    """A rank that raises breaks its peers' collectives, and `join` may meet a peer's
+    error first: `spawn` names the rank with the earliest stamped failure instead."""
+    for rank, stamp, trace in ((0, 30, "RuntimeError: Connection closed by peer"),
+                               (2, 10, "FileNotFoundError: img_002_f.npy"),
+                               (3, 20, "RuntimeError: Connection closed by peer")):
+        (tmp_path / f"rank{rank}.err").write_text(f"{stamp}\n{trace}")
+    (tmp_path / "rank1.pt").write_text("")
+    assert launch._first_failure(str(tmp_path)) == (
+        "rank 2 raised:\nFileNotFoundError: img_002_f.npy")
+    (tmp_path / "none").mkdir()
+    assert launch._first_failure(str(tmp_path / "none")) is None
 
 
 def test_nccl_needs_a_card_per_rank(monkeypatch):
