@@ -24,6 +24,12 @@ Phases (any failure ends the run with a non-zero exit):
      in a synchronize), and with CUDA events preprocess, binning and the blend kernel,
      the plain version's time, the kernel's bound from this run's work, and the share
      of (instance, warp-region) pairs the blend kernels' cull keeps;
+  4b. the overflow path: `render_full` of view 0 (features) from an eighth of the
+     instance budget that view needs and a tile cap of 2, each attempt's budget, tile
+     cap and drops logged; the launch counters are zeroed just before and read just
+     after; its image, feature image and final T must equal phase 4's render_full of the
+     view bit for bit, and so must a render with the tile cap at the whole grid (the
+     binning then lists every tile of each rect, unculled);
   5. the training path: the same cameras over 1M SfM points of the bench box and
      language-feature maps (from --seed), trained by
      `langsplat_tpu_torch.cli.train_cli.main` for 20 phase-A steps (every Gaussian
@@ -39,7 +45,10 @@ Phases (any failure ends the run with a non-zero exit):
      bit, and the segment-sum kernel against the plain segment sum on the CPU, row by
      row, and over two launches bit for bit; the share of (instance, warp-region) pairs
      the blend kernels' cull (one for the forward and the backward) keeps, counted with
-     its plain mirror, which must keep every region the plain forward blends in;
+     its plain mirror, which must keep every region the plain forward blends in; and
+     each kernel launched once more with every output a view inside 64 KiB of guard
+     words on each side: no guard word may change, and the outputs must equal the
+     launches into tensors of their own bit for bit;
   7. training timings at full width: per step (host clock, median of 5 after warm-up),
      its parts with CUDA events (forward render, loss, backward, optimizer), the
      device's idle share over 3 profiled steps, and the forward, backward and
@@ -124,10 +133,10 @@ Phases (any failure ends the run with a non-zero exit):
      0.05 with localization 1.0 (a floor, not a band: the oracle follows the AE's
      training run, which rounding steers, ROADMAP F4); the trained field's mIoU above
      half the oracle's; and the report must hold every key of QUALITY_r04.json.
-The launch counters are zeroed before, and read after, each path (phases 3, 5 A and B,
-8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward, each stage of
-13; phase 12's ranks are fresh processes, whose counts start at zero). The line before the last is the
-`kernels` JSON; the last line is the result JSON.
+The launch counters are zeroed before, and read after, each path (phases 3, 4b, 5 A and
+B, 8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward, each stage
+of 13; phase 12's ranks are fresh processes, whose counts start at zero). The line
+before the last is the `kernels` JSON; the last line is the result JSON.
 It needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -158,7 +167,7 @@ try:
     from langsplat_tpu_torch.models.gaussian_field import from_numpy
     from langsplat_tpu_torch.ops import _build, projection, rasterize_cuda, segsum, tiles
     from langsplat_tpu_torch.ops.render import count_instances, render
-    from langsplat_tpu_torch.train import densify, trainer
+    from langsplat_tpu_torch.train import densify, loop, trainer
     from langsplat_tpu_torch.train.loop import BudgetPolicy, make_settings, render_full
 except ImportError as e:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({e}); run it from the repository root",
@@ -178,6 +187,7 @@ TRAIN_STEPS = 20
 # 6 instances per Gaussian of capacity, at which the training loop refuses to truncate.
 BUDGET_FLAGS = ["--budget_factor", "24"]
 SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu"]
+GUARD_BYTES = 1 << 16       # guard words on each side of a guarded kernel output
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, FP32 outside the tensor cores
 # The cull's kept shares are counted on the same inputs by its plain mirror, not read
@@ -390,6 +400,103 @@ def compare_segsum(d_pre, ends, n) -> tuple[float, float, list]:
         raise RuntimeError(f"segsum kernel disagrees with its plain version: "
                            f"row-relative {rel}")
     return float(err.max()), rel, [float(s) for s in scale[:, 0]]
+
+
+def guard_check(bargs, bwd_args, grad_mode, d_pre, ends, n) -> dict:
+    """K1, K2 and K3 launched once more with every output a view inside GUARD_BYTES of
+    guard words on each side (`_build.guarded`; K2's view filled with NaN first, which
+    its wrapper zeroes before the launch): per kernel, the guard words changed and
+    whether the outputs equal the launches into tensors of their own, bit for bit.
+    Raises unless none changed and all are equal."""
+    size = dict(image_height=HEIGHT, image_width=WIDTH, tile_size=TILE)
+    image, t_final = rasterize_cuda.blend_forward_cuda(*bargs, **size)
+    want = dict(blend_fwd=[image, t_final], blend_bwd=[d_pre, bwd_args[-1]],
+                segsum=[segsum.segment_sum_cuda(d_pre, ends, n)])
+    outs = {k: [_build.guarded(t.shape, torch.float32, t.device, GUARD_BYTES) for t in v]
+            for k, v in want.items()}
+    outs["blend_bwd"][0][0].fill_(float("nan"))
+    rasterize_cuda.blend_forward_cuda(*bargs, **size, out=[o for o, _ in outs["blend_fwd"]])
+    rasterize_cuda.blend_backward_cuda(*bwd_args, grad_mode=grad_mode, return_t=True,
+                                       **size, out=[o for o, _ in outs["blend_bwd"]])
+    segsum.segment_sum_cuda(d_pre, ends, n, out=outs["segsum"][0][0])
+    torch.cuda.synchronize()
+    result = {k: dict(guard_words_changed=sum(changed() for _, changed in outs[k]),
+                      equal=all(torch.equal(o, t) for (o, _), t in zip(outs[k], want[k])),
+                      output_bytes=sum(4 * t.numel() for t in want[k]))
+              for k in want}
+    bad = {k: r for k, r in result.items() if r["guard_words_changed"] or not r["equal"]}
+    if bad:
+        raise RuntimeError(f"a kernel wrote outside its outputs or into them differently "
+                           f"through a view: {bad}")
+    return result
+
+
+def recorded_render_full(field, cam, pipe, device, **kw):
+    """`render_full` of `cam` with features, and each attempt's budget, tile cap and
+    drops, recorded by wrapping the loop's `render`."""
+    attempts = []
+    inner = loop.render
+
+    def recording(field_, settings, *args, **kwargs):
+        out = inner(field_, settings, *args, **kwargs)
+        attempts.append(dict(budget=settings.budget,
+                             max_tiles=settings.max_tiles_per_gaussian,
+                             instances_dropped=int(out["instances_dropped"]),
+                             rect_dropped=int(out["rect_dropped"])))
+        return out
+
+    loop.render = recording
+    try:
+        out = render_full(field, cam, pipe, 3, True, [0.0, 0.0, 0.0], device=device, **kw)
+    finally:
+        loop.render = inner
+    return out, attempts
+
+
+def overflow_phase(field, cam, pipe, device, instances: int) -> dict:
+    """4b: render_full of view 0 from an eighth of its `instances` and a tile cap of 2,
+    the counters zeroed just before and read just after; its outputs, and those of a
+    render with the tile cap at the whole grid (unculled binning), must equal phase 4's
+    render_full of the view bit for bit: the binning's cull and the kernels' per-pixel
+    tests are exact, so instances that a larger cap lists blend nothing."""
+    keys = ("render", "language_feature_image", "final_transmittance")
+    grid = -(-cam.width // TILE) * -(-cam.height // TILE)
+    with torch.no_grad():
+        ref, ref_attempts = recorded_render_full(field, cam, pipe, device)
+        zero_launches()
+        t0 = time.perf_counter()
+        out, attempts = recorded_render_full(field, cam, pipe, device,
+                                             budget=instances // 8, max_tiles=2)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        unculled, unculled_attempts = recorded_render_full(field, cam, pipe, device,
+                                                           max_tiles=grid)
+    first, last = attempts[0], attempts[-1]
+    log(f"phase 4b: render_full from budget {instances // 8} (1/8 of view 0's "
+        f"{instances} instances) and tile cap 2: {len(attempts)} attempts in "
+        f"{seconds:.3f} s: " + json.dumps(attempts) + f"; launches {launches}")
+    if not (first["instances_dropped"] > 0 and first["rect_dropped"] > 0
+            and last["budget"] > first["budget"] and last["max_tiles"] > first["max_tiles"]
+            and last["instances_dropped"] == last["rect_dropped"] == 0):
+        raise RuntimeError(f"render_full did not grow both caps from a pass that dropped: "
+                           f"{attempts}")
+    if launches["blend_fwd"] != len(attempts):
+        raise RuntimeError(f"the overflow path launched blend_fwd {launches['blend_fwd']} "
+                           f"times in {len(attempts)} attempts")
+    differing = {}
+    for name, other in (("retried", out), ("unculled", unculled)):
+        for k in keys:
+            if not torch.equal(other[k], ref[k]):
+                diff = (other[k] - ref[k]).abs()
+                differing[f"{name} {k}"] = (int((diff > 0).sum()), float(diff.max()))
+    log(f"phase 4b: phase 4's render_full {json.dumps(ref_attempts)}; with the tile cap at "
+        f"the whole grid ({grid}, unculled) {json.dumps(unculled_attempts)}; outputs "
+        f"differing from phase 4's: {differing or 'none'}")
+    if differing:
+        raise RuntimeError(f"retried or unculled renders differ from phase 4's: {differing}")
+    return dict(attempts=attempts, seconds=seconds, launches=launches,
+                reference_attempts=ref_attempts, unculled_attempts=unculled_attempts)
 
 
 def small_comparisons(device) -> dict:
@@ -784,6 +891,9 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
         f"(CPU) on the same d_pre: max_abs_err {seg_err:.3e}, row-relative "
         f"{seg_rel:.3e} (tol {SEG_TOL:.0e}), bit-equal over two launches; each row's "
         f"largest sum " + ", ".join(f"{s:.2e}" for s in seg_scale))
+    guards = guard_check(bargs, bwd_args, mode, d_pre, ends, n)
+    log(f"phase 6 ({phase}): guard words ({GUARD_BYTES} bytes each side) around every "
+        f"output of K1, K2 ({mode}) and K3: " + json.dumps(guards))
     evaluated, blended, blended_in = rasterize_cuda.blend_pairs(*bargs, **size)
     pairs = (evaluated, blended)
     shares = cull_shares(bargs, inst, blended_in)
@@ -824,7 +934,7 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
     timing.update(segsum_bound_ms=sbound, segsum_bound_by=sbound_by, segsum_work=swork)
     log(f"phase 7 ({phase}): " + json.dumps(timing))
     log(f"phase 7 ({phase}) profile over 3 steps: " + json.dumps(profile_render(step)))
-    return dict(timing, errors=dict(blend_fwd=fwd_err, blend_bwd=abs_err,
+    return dict(timing, guards=guards, errors=dict(blend_fwd=fwd_err, blend_bwd=abs_err,
                                     blend_bwd_rel=rel_err, segsum=seg_err,
                                     segsum_rel=seg_rel))
 
@@ -2473,6 +2583,9 @@ def main() -> int:
                 log(f"phase 4 ({mode}) profile: " + json.dumps(profile_render(
                     lambda: render_full(gpu_field, cam, pipe, 3, feat, [0.0, 0.0, 0.0],
                                         device=device))))
+        # 4b. the overflow path: render_full's retries from an eighth of the budget
+        overflow = overflow_phase(gpu_field, cam, pipe, device,
+                                  int(runs[True][3].num_instances))
         del gpu_field, runs, field
 
         # 5. the training path: the train CLI at full width, phase A then phase B
@@ -2583,7 +2696,8 @@ def main() -> int:
     feat = timings["features"]
     ta, tb = train_timings["A"], train_timings["B"]
     # launches on each path, each counted from zero just before the path ran
-    paths = {"render": render_launches, "train_A": train_logs["A"]["launches"],
+    paths = {"render": render_launches, "overflow": overflow["launches"],
+             "train_A": train_logs["A"]["launches"],
              "train_B": train_logs["B"]["launches"],
              "trace_A": surface["trace"]["A"]["launches"],
              "trace_B": surface["trace"]["B"]["launches"],
@@ -2641,6 +2755,8 @@ def main() -> int:
     ]
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))
+    log("phase 4b: " + json.dumps(dict(overflow, guards={
+        ph: train_timings[ph]["guards"] for ph in ("A", "B")})))
     log("phase 9: " + json.dumps(evaluation))
     log("phase 10: " + json.dumps(preprocessing))
     log("phase 11: " + json.dumps(surface))

@@ -5,18 +5,22 @@ A library is built at first use into `langsplat_tpu_torch/_build/`, named by a h
 its sources and flags, so a changed source rebuilds and an unchanged one is reused.
 Nothing here runs at import time. `LAUNCHES` counts, per kernel, the launches made
 through the kernels' wrappers; a caller resets it to show which kernels a run went
-through.
+through. `guarded` places a kernel's output inside guard words, to show that the kernel
+writes nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -84,3 +88,25 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([source])[0]))
             _libs[source] = lib
         return lib
+
+
+#: the bit pattern of a guard word: a NaN whose payload no arithmetic produces
+GUARD_WORD = 0x7FC0FFEE
+
+
+def guarded(shape, dtype: torch.dtype, device, guard_bytes: int = 1 << 16):
+    """An output tensor of `shape` (a 4-byte dtype) placed as a view in the middle of one
+    larger buffer, with `guard_bytes` of GUARD_WORD on each side, and a function that
+    counts the guard words that no longer hold it. A kernel that wrote past either end
+    of the view would change guard words there; into a tensor of its own, the caching
+    allocator would let that pass without an error."""
+    numel = math.prod(shape)
+    guard = guard_bytes // 4
+    buf = torch.full((2 * guard + numel,), GUARD_WORD, dtype=torch.int32, device=device)
+    view = buf[guard:guard + numel].view(dtype).view(shape)
+
+    def changed() -> int:
+        return int((buf[:guard] != GUARD_WORD).sum()
+                   + (buf[guard + numel:] != GUARD_WORD).sum())
+
+    return view, changed

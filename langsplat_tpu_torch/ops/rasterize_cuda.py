@@ -313,8 +313,9 @@ def _check_blend_inputs(kernel, means2d, conics, opacities, visible, colors, fea
 
 
 def blend_forward_cuda(means2d, conics, opacities, visible, colors, features, gauss_id,
-                       tile_start, bg, *, image_height, image_width, tile_size):
-    """Launch the blend kernel on the tensors' CUDA device and current stream."""
+                       tile_start, bg, *, image_height, image_width, tile_size, out=None):
+    """Launch the blend kernel on the tensors' CUDA device and current stream. `out`,
+    if given, is the (image, t_final) pair to write into."""
     device = means2d.device
     num_feat, grid_x, num_tiles = _check_blend_inputs(
         "blend_forward_cuda", means2d, conics, opacities, visible, colors, features,
@@ -326,9 +327,14 @@ def blend_forward_cuda(means2d, conics, opacities, visible, colors, features, ga
     fn = lib.blend_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    image = torch.empty((3 + num_feat, image_height, image_width), dtype=f32,
-                        device=device)
-    t_final = torch.empty((image_height, image_width), dtype=f32, device=device)
+    shape = (3 + num_feat, image_height, image_width)
+    if out is None:
+        image = torch.empty(shape, dtype=f32, device=device)
+        t_final = torch.empty(shape[1:], dtype=f32, device=device)
+    else:
+        image, t_final = out
+        _check("out image", image, f32, shape, device)
+        _check("out t_final", t_final, f32, shape[1:], device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(),
@@ -457,10 +463,12 @@ def blend_backward_plain(*args, grad_mode, image_height, image_width, tile_size,
 
 def blend_backward_cuda(means2d, conics, opacities, visible, colors, features, gauss_id,
                         tile_start, presort_slot, g_image, g_tfinal, total, t_final, *,
-                        grad_mode, image_height, image_width, tile_size, return_t=False):
+                        grad_mode, image_height, image_width, tile_size, return_t=False,
+                        out=None):
     """Launch the blend backward kernel on the tensors' CUDA device and current
-    stream. The output is allocated zeroed here: instances a tile never reached are not
-    written by the kernel."""
+    stream. The output is zeroed here, before the launch: instances a tile never
+    reached are not written by the kernel. `out`, if given, is the (d_pre, t_replay)
+    pair to write into (t_replay None unless return_t)."""
     device = means2d.device
     num_feat, grid_x, num_tiles = _check_blend_inputs(
         "blend_backward_cuda", means2d, conics, opacities, visible, colors, features,
@@ -479,8 +487,17 @@ def blend_backward_cuda(means2d, conics, opacities, visible, colors, features, g
     fn = lib.blend_bwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    d_pre = torch.zeros((rows, budget), dtype=f32, device=device)
-    t_replay = torch.empty(hw, dtype=f32, device=device) if return_t else None
+    if out is None:
+        d_pre = torch.zeros((rows, budget), dtype=f32, device=device)
+        t_replay = torch.empty(hw, dtype=f32, device=device) if return_t else None
+    else:
+        d_pre, t_replay = out
+        _check("out d_pre", d_pre, f32, (rows, budget), device)
+        if (t_replay is not None) != return_t:
+            raise ValueError("out's t_replay must be given exactly when return_t is set")
+        if return_t:
+            _check("out t_replay", t_replay, f32, hw, device)
+        d_pre.zero_()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(),

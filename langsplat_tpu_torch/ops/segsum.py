@@ -40,8 +40,10 @@ def segment_sum_plain(d_pre: torch.Tensor, ends: torch.Tensor, n_out: int) -> to
     return out.index_add_(1, seg, span)
 
 
-def segment_sum_cuda(d_pre: torch.Tensor, ends: torch.Tensor, n_out: int) -> torch.Tensor:
-    """Launch the segment-sum kernel on the tensors' CUDA device and current stream."""
+def segment_sum_cuda(d_pre: torch.Tensor, ends: torch.Tensor, n_out: int,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the segment-sum kernel on the tensors' CUDA device and current stream;
+    `out`, if given, is the [rows, n_out] float32 tensor to write into."""
     device = d_pre.device
     if device.type != "cuda" or ends.device != device:
         raise ValueError(f"segment_sum_cuda needs CUDA tensors on one device, got "
@@ -59,7 +61,12 @@ def segment_sum_cuda(d_pre: torch.Tensor, ends: torch.Tensor, n_out: int) -> tor
     fn = lib.segsum
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    out = torch.empty((rows, n_out), dtype=torch.float32, device=device)
+    if out is None:
+        out = torch.empty((rows, n_out), dtype=torch.float32, device=device)
+    elif (out.device != device or out.dtype != torch.float32
+          or tuple(out.shape) != (rows, n_out) or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 [{rows}, {n_out}] tensor on "
+                         f"{device}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(d_pre.data_ptr(), ends.data_ptr(), rows, width, n_out, out.data_ptr(),

@@ -8,11 +8,23 @@ a machine where the JAX package's tests do not:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
+The overflow paths (render_full's retries, truncated instance buffers, the kernels'
+writes checked with guard words, an empty view) run in child processes with
+CUDA_LAUNCH_BLOCKING=1: a device-side assertion would end the context of the process
+that hits it, and the variable only acts when it is set before CUDA starts.
+
 Tolerance: 2e-4 absolute. The kernel and the plain version make the same sequential
 transmittance steps, but may round differently (FMA contraction, expf); when T lands
 next to 1e-4 that can flip which instance ends a pixel, and such a flip moves a channel
 by at most ~1e-4.
 """
+
+import os
+import subprocess
+import sys
+import traceback
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -496,3 +508,308 @@ def test_collectives_on_card_tensors(cuda_device):
         assert (out["world"], out["backend"]) == (2, "gloo")
         assert out["device"].startswith("cuda"), out["device"]
         assert max(out["errors"].values()) <= 1e-5, (r, out["errors"])
+
+
+# ---------------------------------------------------------------------------
+# The overflow paths, each in a child process
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent.parent
+OVERFLOW_W, OVERFLOW_H = 256, 192   # 16 x 12 tiles: the grid (192) is past MAX_CULL_TMAX
+OVERFLOW_BG = [0.2, 0.5, 0.9]
+GUARD_CASES = ("fwd_f0", "fwd_f3", "fwd_empty", "bwd_full", "bwd_feature", "segsum")
+TRUNCATED_CASES = ((0, "full"), (3, "full"), (3, "feature"))
+
+
+def run_child(name: str, out: Path, timeout: int = 600) -> dict:
+    """Run `name(device)` of this file in a new interpreter with CUDA_LAUNCH_BLOCKING=1
+    and return the dict it saved."""
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(REPO),
+                                                        os.environ.get("PYTHONPATH")])))
+    proc = subprocess.run([sys.executable, __file__, name, str(out)], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    return torch.load(out)
+
+
+def overflow_params(n: int = 3000, seed: int = 21) -> dict:
+    """field_params with sigmas of at most ~25 px at this camera (a rect of at most
+    ~100 tiles) and opacities 0.1-0.3: past a rect's edge (3 sigma) alpha <= 0.3 e^-4.5
+    < 1/255, so a rect edge that the card's rounding of the preprocess moves changes no
+    pixel."""
+    rng = np.random.default_rng(seed + 1)
+    p = field_params(n, seed, 3)
+    p["scaling"] = np.log(rng.uniform(0.02, 0.25, (n, 3))).astype(np.float32)
+    opa = rng.uniform(0.1, 0.3, (n, 1))
+    p["opacity"] = np.log(opa / (1 - opa)).astype(np.float32)
+    return p
+
+
+def overflow_camera(facing_away: bool = False):
+    cam = camera(OVERFLOW_W, OVERFLOW_H)
+    view, proj = cam["viewmatrix"], cam["projmatrix"]
+    if facing_away:   # turned half a circle about its y axis: every Gaussian is behind
+        flip = np.diag([-1.0, 1.0, -1.0, 1.0])
+        view, proj = view @ flip, view @ flip @ np.linalg.solve(view, proj)
+    return SimpleNamespace(world_view_transform=view.astype(np.float32),
+                           full_proj_transform=proj.astype(np.float32),
+                           camera_center=cam["campos"], tanfovx=cam["tanfovx"],
+                           tanfovy=cam["tanfovy"], height=OVERFLOW_H, width=OVERFLOW_W)
+
+
+def first_budget(field, cam, pipe, device) -> int:
+    """An eighth of the instances the view bins at tile cap MAX_CULL_TMAX."""
+    from langsplat_tpu_torch.ops.render import count_instances
+    from langsplat_tpu_torch.train.loop import make_settings
+    settings = make_settings(cam, pipe, 3, True, field.capacity,
+                             max_tiles=tiles.MAX_CULL_TMAX)
+    mats = [torch.as_tensor(m, device=device) for m in (
+        cam.world_view_transform, cam.full_proj_transform, cam.camera_center)]
+    with torch.no_grad():
+        return count_instances(field, settings, *mats) // 8
+
+
+def recorded_render_full(field, cam, pipe, device, **kw):
+    """render_full with features, and each attempt's (budget, max_tiles, instances
+    dropped, rect positions dropped), recorded by wrapping the loop's `render`."""
+    from langsplat_tpu_torch.train import loop
+    attempts = []
+    inner = loop.render
+
+    def render(field_, settings, *args, **kwargs):
+        out = inner(field_, settings, *args, **kwargs)
+        attempts.append([settings.budget, settings.max_tiles_per_gaussian,
+                         int(out["instances_dropped"]), int(out["rect_dropped"])])
+        return out
+
+    loop.render = render
+    try:
+        out = loop.render_full(field, cam, pipe, 3, True, OVERFLOW_BG, device=device, **kw)
+    finally:
+        loop.render = inner
+    keys = ("render", "language_feature_image", "final_transmittance")
+    return {k: out[k].cpu() for k in keys}, attempts
+
+
+def child_render_full_retries(device) -> dict:
+    """render_full from an eighth of the budget and a tile cap of 2, and at an ample
+    budget with the tile cap at the whole grid (unculled binning), on the card."""
+    from langsplat_tpu_torch.config import PipelineConfig
+    from langsplat_tpu_torch.models.gaussian_field import from_numpy
+    field = from_numpy(overflow_params(), device)
+    cam = overflow_camera()
+    pipe = PipelineConfig()
+    budget = first_budget(field, cam, pipe, device)
+    launches = dict(_build.LAUNCHES)
+    retried, attempts = recorded_render_full(field, cam, pipe, device, budget=budget,
+                                             max_tiles=2)
+    torch.cuda.synchronize()
+    retry_launches = _build.LAUNCHES["blend_fwd"] - launches["blend_fwd"]
+    grid = (OVERFLOW_W // 16) * (OVERFLOW_H // 16)
+    ample, ample_attempts = recorded_render_full(field, cam, pipe, device,
+                                                 budget=64 * field.capacity, max_tiles=grid)
+    return dict(budget=budget, retried=retried, attempts=attempts, ample=ample,
+                ample_attempts=ample_attempts, retry_launches=retry_launches)
+
+
+def child_empty_view(device) -> dict:
+    """render_full of a view that no Gaussian is in front of, on the card."""
+    from langsplat_tpu_torch.config import PipelineConfig
+    from langsplat_tpu_torch.models.gaussian_field import from_numpy
+    field = from_numpy(overflow_params(), device)
+    launches = dict(_build.LAUNCHES)
+    out, attempts = recorded_render_full(field, overflow_camera(facing_away=True),
+                                         PipelineConfig(), device)
+    torch.cuda.synchronize()
+    return dict(out=out, attempts=attempts,
+                launches={k: _build.LAUNCHES[k] - launches[k] for k in launches})
+
+
+def truncated(n, seed, w, h, num_feat, device, share=0.5):
+    """`binned`, at an instance budget of `share` of what the view lists: the kept
+    instances, and Gaussians whose offsets point past the budget."""
+    prep, inst, opac, feats = binned(n, seed, w, h, num_feat, device)
+    budget = int(share * int(inst.num_instances))
+    inst = tiles.bin_gaussians(prep, grid_x=-(-w // 16), grid_y=-(-h // 16), budget=budget,
+                               max_tiles_per_gaussian=64, tile_size=16, opacities=opac)
+    assert int(inst.dropped) > 0 and int(inst.num_instances) == budget
+    return prep, inst, opac, feats
+
+
+def truncated_case(num_feat, grad_mode, device) -> dict:
+    """K1, K2 and K3 on a truncated buffer against their plain versions."""
+    from langsplat_tpu_torch.ops.segsum import segment_sum_cuda, segment_sum_plain
+    w, h = 200, 129
+    prep, inst, opac, feats = truncated(3000, 2, w, h, num_feat, device)
+    bg = torch.tensor(OVERFLOW_BG, device=device)
+    args = rasterize_cuda.blend_args(prep, inst, opac, feats, bg)
+    size = dict(image_height=h, image_width=w, tile_size=16)
+    image, t_final = rasterize_cuda.blend_forward_cuda(*args, **size)
+    ref_image, ref_t = rasterize_cuda.blend_forward_plain(*args, **size)
+    fwd_err = max(float((image - ref_image).abs().max()),
+                  float((t_final - ref_t).abs().max()))
+    g_image, g_tfinal, total = residuals(image, t_final, bg, 3)
+    bwd_args = (*args[:8], inst.presort_slot, g_image, g_tfinal, total, t_final)
+    bsize = dict(size, grad_mode=grad_mode)
+    d_pre, t_replay = rasterize_cuda.blend_backward_cuda(*bwd_args, return_t=True, **bsize)
+    ref = rasterize_cuda.blend_backward_plain(*bwd_args, **bsize)
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-6)
+    n = prep.means2d.shape[0]
+    budget = inst.gauss_id.shape[0]
+    ends = torch.clamp(inst.gauss_offsets, 0, budget).contiguous()
+    sums = segment_sum_cuda(d_pre, ends, n).cpu()
+    ref_sums = segment_sum_plain(d_pre.cpu(), ends.cpu(), n)
+    offsets = inst.gauss_offsets.cpu()
+    all_dropped = (offsets[1:] > offsets[:-1]) & (offsets[:-1] >= budget)
+    return dict(fwd_err=fwd_err, t_replay_equal=bool(torch.equal(t_replay, t_final)),
+                bwd_rel=float(((d_pre - ref).abs() / scale).max()),
+                bwd_max=float(ref.abs().max()),
+                seg_rel=float(((sums - ref_sums).abs()
+                               / ref_sums.abs().amax(dim=1, keepdim=True)).max()),
+                all_dropped=int(all_dropped.sum()),
+                all_dropped_max=float(sums[:, all_dropped].abs().max()),
+                finite=bool(torch.isfinite(image).all() and torch.isfinite(d_pre).all()))
+
+
+def guard_case(case, device) -> dict:
+    """Launch one kernel with each output a view inside 64 KiB of guard words on each
+    side: the guard words changed, and whether the outputs equal a launch into tensors
+    of their own, bit for bit."""
+    from langsplat_tpu_torch.ops.segsum import segment_sum_cuda
+    w, h = 77, 53
+    num_feat = 0 if case == "fwd_f0" else 3
+    prep, inst, opac, feats = truncated(500, 1, w, h, num_feat, device)
+    if case == "fwd_empty":
+        prep = prep._replace(visible=torch.zeros_like(prep.visible))
+        inst = tiles.bin_gaussians(prep, grid_x=5, grid_y=4, budget=4096,
+                                   max_tiles_per_gaussian=64, tile_size=16, opacities=opac)
+        assert int(inst.num_instances) == 0
+    bg = torch.tensor(OVERFLOW_BG, device=device)
+    args = rasterize_cuda.blend_args(prep, inst, opac, feats, bg)
+    size = dict(image_height=h, image_width=w, tile_size=16)
+    image, t_final = rasterize_cuda.blend_forward_cuda(*args, **size)
+    if case.startswith("fwd"):
+        want = [image, t_final]
+        outs = [_build.guarded(t.shape, torch.float32, device) for t in want]
+        rasterize_cuda.blend_forward_cuda(*args, **size, out=[o for o, _ in outs])
+    else:
+        g_image, g_tfinal, total = residuals(image, t_final, bg, 4)
+        bwd_args = (*args[:8], inst.presort_slot, g_image, g_tfinal, total, t_final)
+        bsize = dict(size, grad_mode="feature" if case == "bwd_feature" else "full",
+                     return_t=True)
+        want = list(rasterize_cuda.blend_backward_cuda(*bwd_args, **bsize))
+        if case.startswith("bwd"):
+            outs = [_build.guarded(t.shape, torch.float32, device) for t in want]
+            outs[0][0].fill_(float("nan"))     # the wrapper zeroes d_pre before the launch
+            rasterize_cuda.blend_backward_cuda(*bwd_args, **bsize,
+                                               out=[o for o, _ in outs])
+        else:
+            ends = torch.clamp(inst.gauss_offsets, 0, inst.gauss_id.shape[0]).contiguous()
+            n = prep.means2d.shape[0]
+            lengths = ends[1:] - ends[:-1]
+            assert int((lengths == 0).sum()) > 0
+            assert int(ends[-1]) < int(inst.gauss_offsets[-1])
+            d_pre = want[0]
+            want = [segment_sum_cuda(d_pre, ends, n)]
+            outs = [_build.guarded(want[0].shape, torch.float32, device)]
+            segment_sum_cuda(d_pre, ends, n, out=outs[0][0])
+    torch.cuda.synchronize()
+    return dict(changed=sum(changed() for _, changed in outs),
+                equal=all(torch.equal(o, t) for (o, _), t in zip(outs, want)),
+                numel=sum(t.numel() for t in want))
+
+
+def child_overflow_kernels(device) -> dict:
+    """The truncated-buffer and guard-word cases, each one's result or its traceback."""
+    results = {}
+    cases = [(f"truncated_{f}_{m}", lambda f=f, m=m: truncated_case(f, m, device))
+             for f, m in TRUNCATED_CASES]
+    cases += [(f"guard_{c}", lambda c=c: guard_case(c, device)) for c in GUARD_CASES]
+    for name, fn in cases:
+        try:
+            results[name] = fn()
+        except Exception:
+            results[name] = dict(error=traceback.format_exc())
+    return results
+
+
+@pytest.fixture(scope="module")
+def overflow_kernels(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return run_child("child_overflow_kernels",
+                     tmp_path_factory.mktemp("overflow") / "kernels.pt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_feat,grad_mode", TRUNCATED_CASES)
+def test_kernels_on_a_truncated_buffer_match_plain(overflow_kernels, num_feat, grad_mode):
+    """K1, K2 and K3 on an instance buffer cut to half of what the view lists (the
+    Gaussians past the cut keep offsets past the budget) against their plain versions,
+    at the limits above: 2e-4 absolute, 1e-4 and 1e-5 of each row's largest value; the
+    Gaussians whose instances were all dropped sum to exactly zero."""
+    r = overflow_kernels[f"truncated_{num_feat}_{grad_mode}"]
+    assert "error" not in r, r.get("error")
+    assert r["finite"] and r["t_replay_equal"]
+    assert r["fwd_err"] <= CARD_ATOL
+    assert r["bwd_max"] > 0 and r["bwd_rel"] < 1e-4
+    assert r["seg_rel"] <= 1e-5
+    assert r["all_dropped"] > 0 and r["all_dropped_max"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GUARD_CASES)
+def test_kernels_write_only_inside_their_outputs(overflow_kernels, case):
+    """Each kernel launched with its outputs as views inside 64 KiB of guard words on
+    each side (K1 with F = 0 and 3 on a 77x53 image, K1 where no Gaussian is visible, K2
+    in both grad modes, K3 with clamped ends and empty segments, on truncated buffers):
+    every guard word unchanged, and the outputs bit-equal to a launch into tensors of
+    their own."""
+    r = overflow_kernels[f"guard_{case}"]
+    assert "error" not in r, r.get("error")
+    assert r["numel"] > 0 and r["changed"] == 0 and r["equal"]
+
+
+@pytest.mark.cuda
+def test_render_full_retries_on_card(cuda_device, tmp_path):
+    """render_full from an eighth of the budget and a tile cap of 2: the first pass
+    drops instances and tile positions, both caps grow, and the last pass drops nothing
+    at a culled tile cap. Its image is bit-equal to the render at an ample budget with
+    the tile cap at the whole grid (unculled binning), and within 2e-4 of render_full
+    on the CPU."""
+    from langsplat_tpu_torch.config import PipelineConfig
+    from langsplat_tpu_torch.models.gaussian_field import from_numpy
+    r = run_child("child_render_full_retries", tmp_path / "retries.pt")
+    att = r["attempts"]
+    assert att[0][2] > 0 and att[0][3] > 0
+    assert att[-1][0] > att[0][0] and att[-1][1] > att[0][1]
+    assert att[-1][2:] == [0, 0] and att[-1][1] <= tiles.MAX_CULL_TMAX
+    assert r["retry_launches"] == len(att)
+    assert len(r["ample_attempts"]) == 1
+    assert r["ample_attempts"][0][1] > tiles.MAX_CULL_TMAX
+    for k, v in r["retried"].items():
+        assert torch.equal(v, r["ample"][k]), k
+    cpu, _ = recorded_render_full(from_numpy(overflow_params(), "cpu"), overflow_camera(),
+                                  PipelineConfig(), "cpu", budget=r["budget"], max_tiles=2)
+    for k, v in r["retried"].items():
+        assert float((v - cpu[k]).abs().max()) <= CARD_ATOL, k
+    assert float(r["retried"]["final_transmittance"].min()) < 0.5
+
+
+@pytest.mark.cuda
+def test_render_full_of_an_empty_view_on_card(cuda_device, tmp_path):
+    """render_full with the camera facing away from the field: one pass, the forward
+    kernel launched on an empty buffer, the background everywhere and T = 1."""
+    r = run_child("child_empty_view", tmp_path / "empty.pt")
+    assert len(r["attempts"]) == 1 and r["attempts"][0][2:] == [0, 0]
+    assert r["launches"]["blend_fwd"] == 1
+    out = r["out"]
+    assert bool((out["final_transmittance"] == 1.0).all())
+    assert bool((out["language_feature_image"] == 0.0).all())
+    bg = torch.tensor(OVERFLOW_BG)[:, None, None].expand_as(out["render"])
+    assert torch.equal(out["render"], bg)
+
+
+if __name__ == "__main__":
+    torch.save(globals()[sys.argv[1]](torch.device("cuda")), sys.argv[2])
