@@ -1,0 +1,12 @@
+"""ops/tiles.py bin_gaussians: device ms a traced view of the kernels launched inside
+its span `bench.binning`, read from the trace of the timed calls."""
+
+
+def read(ctx):
+    if ctx["kind"] != "render":
+        return None
+    r = ctx["reading"]
+    seconds, spans = r["spans"].get("binning", (0.0, 0))
+    if not spans or not seconds:
+        return None
+    return seconds / r["calls"] * 1e3

@@ -1,0 +1,12 @@
+"""The device's idle share of the traced training steps, in %: 1 - the device's busy time
+under the profiler over the host-clock time of the same calls without it (the profiler
+slows the host, so its own window would read the device idler than it is)."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train":
+        return None
+    r = ctx["reading"]
+    if not r["busy_s"]:
+        return None
+    return 100.0 * (1.0 - r["busy_s"] / r["untraced_s"])
