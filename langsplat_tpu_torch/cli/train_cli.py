@@ -9,7 +9,10 @@ The first line trains phase A (RGB 3DGS), the second phase B (language features)
 a phase-A checkpoint of either package. The model path is suffixed with the feature
 level, as in the reference. It trains on the CUDA card unless --device says otherwise,
 and fails without a card. --port serves the SIBR viewer on --ip; --profile_dir writes a
-torch.profiler trace of iterations --profile_from .. + --profile_steps - 1.
+torch.profiler trace of iterations --profile_from .. + --profile_steps - 1, which holds
+the port's spans of each layer (`langsplat.*`, `utils/tracing.py`) and a
+`langsplat.sync.<site>` span at every host-device sync; `training()` returns the path
+and the counters' increments inside the window under result["trace"].
 
 A multi-device run (--data_shards, --gauss_shards, or --depth_shards in phase B) starts
 its ranks itself, one process each (`parallel/launch.py`: rank r on cuda:{r % cards}, or
@@ -49,7 +52,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--port", type=int, default=0,
                         help="SIBR viewer bridge port (0 = disabled)")
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="write a torch.profiler trace of a few steps here")
+                        help="write a torch.profiler trace of a few steps here, "
+                             "with the port's langsplat.* spans of each layer and a "
+                             "langsplat.sync.<site> span at each host-device sync")
     parser.add_argument("--profile_from", type=int, default=50)
     parser.add_argument("--profile_steps", type=int, default=5)
     parser.add_argument("--device", type=str, default=None,

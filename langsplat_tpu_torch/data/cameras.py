@@ -15,11 +15,12 @@ import numpy as np
 
 from langsplat_tpu_torch import native
 from langsplat_tpu_torch.core import transforms
+from langsplat_tpu_torch.utils import tracing
 
 #: path -> language-feature loads through it since the last reset: "native" (the C++
 #: loader) or "numpy" (the inputs it cannot serve); a caller resets it to show which
-#: path a run took
-FEATURE_LOADS: dict[str, int] = {"native": 0, "numpy": 0}
+#: path a run took (a view of the counters `feature_loads.<path>` of `utils/tracing.py`)
+FEATURE_LOADS = tracing.CounterView("feature_loads.")
 _loads_lock = threading.Lock()
 
 

@@ -15,6 +15,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
 
+from langsplat_tpu_torch.utils import tracing
+
 
 def _nbytes(value) -> int:
     items = value if isinstance(value, (tuple, list)) else (value,)
@@ -97,6 +99,7 @@ class FeaturePrefetcher:
         # in this thread, and `_done` takes the lock
         fut.add_done_callback(_done)
 
+    @tracing.traced("prefetch_wait")
     def get(self, cam):
         key = cam.image_name
         hit = self.cache.get(key)

@@ -22,6 +22,7 @@ import torch
 from langsplat_tpu_torch.core import sh as sh_lib
 from langsplat_tpu_torch.core import transforms
 from langsplat_tpu_torch.ops.knn import mean_knn_sq_dist
+from langsplat_tpu_torch.utils import tracing
 
 #: field names in the JAX GaussianField's declaration order
 FIELD_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity",
@@ -49,7 +50,7 @@ class GaussianField:
 
     @property
     def num_alive(self) -> int:
-        return int(self.alive.sum())
+        return tracing.host_read("num_alive", self.alive.sum())
 
     @property
     def get_scaling(self) -> torch.Tensor:

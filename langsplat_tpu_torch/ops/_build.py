@@ -4,9 +4,10 @@ shared library with a plain C interface, loaded with ctypes.
 A library is built at first use into `langsplat_tpu_torch/_build/`, named by a hash of
 its sources and flags, so a changed source rebuilds and an unchanged one is reused.
 Nothing here runs at import time. `LAUNCHES` counts, per kernel, the launches made
-through the kernels' wrappers; a caller resets it to show which kernels a run went
-through. `guarded` places a kernel's output inside guard words, to show that the kernel
-writes nowhere else.
+through the kernels' wrappers (a view of the counters `launches.<kernel>` of
+`utils/tracing.py`); a caller resets it to show which kernels a run went through.
+`guarded` places a kernel's output inside guard words, to show that the kernel writes
+nowhere else.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from langsplat_tpu_torch.utils import tracing
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -29,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel name -> launches through its wrapper since the last reset
-LAUNCHES: dict[str, int] = {"blend_fwd": 0, "blend_bwd": 0, "segsum": 0}
+LAUNCHES = tracing.CounterView("launches.")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

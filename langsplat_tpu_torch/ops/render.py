@@ -10,6 +10,9 @@ on the card, their plain versions on the CPU) or `rasterize_tiled.rasterize_tile
 (backend "tiled", at most `max_per_tile` instances a tile, on any device). `screenspace_offset` is the means2D
 gradient tap: pass zeros [cap, 2] that require grad and read their gradient to drive
 densification statistics.
+
+Spans (`utils/tracing.py`): `render`, and inside it `preprocess` (projection and SH),
+`binning` and `blend` (the forward; the backward runs in autograd's `backward`).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from langsplat_tpu_torch.ops.projection import PreprocessOut
 from langsplat_tpu_torch.ops.rasterize_cuda import rasterize
 from langsplat_tpu_torch.ops.rasterize_tiled import rasterize_tiled
 from langsplat_tpu_torch.ops.tiles import bin_gaussians, instance_counts
+from langsplat_tpu_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -58,6 +62,7 @@ class RenderSettings:
         return -(-self.image_height // self.tile_size)
 
 
+@tracing.traced("render")
 def render(
     field,                        # GaussianField (or anything with its properties)
     settings: RenderSettings,
@@ -72,31 +77,32 @@ def render(
     cap = field.xyz.shape[0]
     budget = settings.budget or 6 * cap
 
-    if settings.compute_cov3d_python and cov3d_precomp is None:
-        cov3d_precomp = field.get_covariance(settings.scale_modifier)
-    if settings.convert_shs_python and override_color is None:
-        dirs = field.xyz - campos[None, :]
-        dirs = dirs / (torch.linalg.vector_norm(dirs, dim=-1, keepdim=True) + 1e-12)
-        override_color = sh_lib.sh_to_color(
-            settings.sh_degree, field.get_features.transpose(-1, -2), dirs)
+    with tracing.span("preprocess"):
+        if settings.compute_cov3d_python and cov3d_precomp is None:
+            cov3d_precomp = field.get_covariance(settings.scale_modifier)
+        if settings.convert_shs_python and override_color is None:
+            dirs = field.xyz - campos[None, :]
+            dirs = dirs / (torch.linalg.vector_norm(dirs, dim=-1, keepdim=True) + 1e-12)
+            override_color = sh_lib.sh_to_color(
+                settings.sh_degree, field.get_features.transpose(-1, -2), dirs)
 
-    prep = projection.preprocess(
-        field.xyz,
-        field.get_scaling,
-        field.rotation,
-        None if override_color is not None else field.get_features,
-        viewmatrix, projmatrix, campos,
-        image_height=settings.image_height,
-        image_width=settings.image_width,
-        tanfovx=settings.tanfovx,
-        tanfovy=settings.tanfovy,
-        sh_degree=settings.sh_degree,
-        tile_size=settings.tile_size,
-        scale_modifier=settings.scale_modifier,
-        cov3d_precomp=cov3d_precomp,
-        colors_precomp=override_color,
-        alive=field.alive,
-    )
+        prep = projection.preprocess(
+            field.xyz,
+            field.get_scaling,
+            field.rotation,
+            None if override_color is not None else field.get_features,
+            viewmatrix, projmatrix, campos,
+            image_height=settings.image_height,
+            image_width=settings.image_width,
+            tanfovx=settings.tanfovx,
+            tanfovy=settings.tanfovy,
+            sh_degree=settings.sh_degree,
+            tile_size=settings.tile_size,
+            scale_modifier=settings.scale_modifier,
+            cov3d_precomp=cov3d_precomp,
+            colors_precomp=override_color,
+            alive=field.alive,
+        )
 
     means2d = prep.means2d
     if screenspace_offset is not None:
@@ -104,12 +110,15 @@ def render(
 
     features = unit_features(field) if settings.include_feature else None
     opac = field.get_opacity[:, 0]
-    inst = bin_gaussians(
-        PreprocessOut(*(t.detach() for t in prep)),
-        grid_x=settings.grid_x, grid_y=settings.grid_y,
-        budget=budget, max_tiles_per_gaussian=settings.max_tiles_per_gaussian,
-        tile_size=settings.tile_size, opacities=opac.detach())
-    out = blend(prep, inst, opac, features, bg_color, settings, means2d_override=means2d)
+    with tracing.span("binning"):
+        inst = bin_gaussians(
+            PreprocessOut(*(t.detach() for t in prep)),
+            grid_x=settings.grid_x, grid_y=settings.grid_y,
+            budget=budget, max_tiles_per_gaussian=settings.max_tiles_per_gaussian,
+            tile_size=settings.tile_size, opacities=opac.detach())
+    with tracing.span("blend"):
+        out = blend(prep, inst, opac, features, bg_color, settings,
+                    means2d_override=means2d)
 
     out["radii"] = prep.radii
     out["visibility_filter"] = prep.radii > 0
@@ -164,4 +173,4 @@ def count_instances(field, settings: RenderSettings, viewmatrix, projmatrix,
     count = instance_counts(prep, tile_size=settings.tile_size,
                             tmax=settings.max_tiles_per_gaussian,
                             opacities=field.get_opacity[:, 0])
-    return int(count.sum())
+    return tracing.host_read("count_instances", count.sum())

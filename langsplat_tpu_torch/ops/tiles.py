@@ -23,6 +23,7 @@ import torch
 
 from langsplat_tpu_torch.ops.projection import PreprocessOut
 from langsplat_tpu_torch.ops.rasterize_reference import ALPHA_EPS
+from langsplat_tpu_torch.utils import tracing
 
 #: widest per-Gaussian tile cap the culled path supports; beyond it bin_gaussians bins
 #: the first tmax positions of the rect unculled (the JAX package's uint32-word limit,
@@ -48,7 +49,8 @@ def _alpha_threshold(opacities: torch.Tensor | None, device) -> torch.Tensor:
     """-log(ALPHA_EPS) [+ log(opa)] as float32: alpha = opa*exp(-Q) reaches ALPHA_EPS
     only where Q <= this. Computed in float32 like the JAX package, so the cull bits
     agree at the threshold."""
-    lam = torch.tensor(-math.log(ALPHA_EPS), dtype=torch.float32, device=device)
+    lam = tracing.upload("binning.threshold", -math.log(ALPHA_EPS), dtype=torch.float32,
+                         device=device)
     if opacities is None:
         return lam.reshape(1, 1)
     return (lam + torch.log(torch.clamp_min(opacities.reshape(-1), 1e-12)))[:, None]
@@ -151,13 +153,16 @@ def bin_gaussians(prep: PreprocessOut, *, grid_x: int, grid_y: int, budget: int,
         any_alpha = _alpha_threshold(opacities, device)[:, 0] >= 0.0
         rect_dropped = torch.where((full_count > tmax) & any_alpha,
                                    full_count - tmax, 0).sum()
-        gid, pos = mask.nonzero(as_tuple=True)
+        with tracing.synced("binning.nonzero"):
+            gid, pos = mask.nonzero(as_tuple=True)
         offsets = torch.cumsum(count, 0) - count
     else:
         count = torch.clamp_max(full_count, tmax)
         rect_dropped = (full_count - count).sum()
         offsets = torch.cumsum(count, 0) - count
-        gid = torch.repeat_interleave(torch.arange(n, device=device), count)
+        # two syncs: the output's size and the check that no count is negative
+        with tracing.synced("binning.repeat_interleave", 2):
+            gid = torch.repeat_interleave(torch.arange(n, device=device), count)
         pos = torch.arange(gid.shape[0], device=device) - offsets[gid]
     total = gid.shape[0]
     kept = min(total, budget)
@@ -187,13 +192,16 @@ def bin_gaussians(prep: PreprocessOut, *, grid_x: int, grid_y: int, budget: int,
     tile_start = torch.searchsorted(
         tile_id, torch.arange(num_tiles + 1, dtype=torch.int32, device=device)
     ).to(torch.int32)
-    gauss_offsets = torch.cat([offsets, torch.tensor([total], device=device)])
+    gauss_offsets = torch.cat([offsets, tracing.upload("binning.total", [total],
+                                                       device=device)])
     return InstanceBuffer(
         gauss_id=padded(gid[order], n),
         tile_id=tile_id,
         tile_start=tile_start,
-        num_instances=torch.tensor(kept, dtype=torch.int32, device=device),
-        dropped=torch.tensor(max(total - budget, 0), dtype=torch.int32, device=device),
+        num_instances=tracing.upload("binning.kept", kept, dtype=torch.int32,
+                                     device=device),
+        dropped=tracing.upload("binning.dropped", max(total - budget, 0),
+                               dtype=torch.int32, device=device),
         rect_dropped=rect_dropped.to(torch.int32),
         presort_slot=padded(order, budget),
         gauss_offsets=gauss_offsets.to(torch.int32),

@@ -25,6 +25,7 @@ import torch
 
 from langsplat_tpu_torch.core.transforms import quat_to_rotmat
 from langsplat_tpu_torch.models.gaussian_field import GaussianField
+from langsplat_tpu_torch.utils import tracing
 
 #: statistic names in the JAX DensifyStats's declaration (and checkpoint leaf) order
 STAT_NAMES = ("grad_accum", "denom", "max_radii2d")
@@ -50,8 +51,8 @@ def update_stats(stats: DensifyStats, screenspace_grad: torch.Tensor,
     """Per-iteration accumulation. `screenspace_grad` is dL/d(means2D) in pixels; it is
     scaled by (0.5 W, 0.5 H) into the half-image units the default densify threshold
     (2e-4) is calibrated to (`langsplat_tpu/train/densify.py:51-75` says why)."""
-    scale = torch.tensor([0.5 * image_width, 0.5 * image_height], dtype=torch.float32,
-                         device=screenspace_grad.device)
+    scale = tracing.upload("stats.scale", [0.5 * image_width, 0.5 * image_height],
+                           dtype=torch.float32, device=screenspace_grad.device)
     gnorm = torch.linalg.vector_norm(screenspace_grad[:, :2] * scale, dim=-1)
     vis = visibility.to(torch.float32)
     return DensifyStats(
@@ -128,14 +129,17 @@ def densify_core(field: GaussianField, stats: DensifyStats, noise: torch.Tensor,
     survivors = alive & ~prune_orig
     free = ~survivors
     free_ids = torch.sort((~free).to(torch.int8), stable=True).indices
-    free_count = int(free.sum())
+    free_count = tracing.host_read("densify.free", free.sum())
 
     flat_valid = child_valid.reshape(-1)                                  # [cap * 2]
     rank = torch.cumsum(flat_valid.to(torch.int64), 0) - 1
     can_place = flat_valid & (rank < free_count)
-    dest = free_ids[torch.clamp(rank, 0, cap - 1)][can_place]
+    dest = tracing.select("densify.dest", free_ids[torch.clamp(rank, 0, cap - 1)],
+                          can_place)
     overflow = (flat_valid & ~can_place).sum().to(torch.int32)
-    parent = torch.arange(cap, device=device).repeat_interleave(2)[can_place]
+    parent = tracing.select("densify.parent",
+                            torch.arange(cap, device=device).repeat_interleave(2),
+                            can_place)
 
     def place(base, child_values):
         out = base.clone()
@@ -145,10 +149,12 @@ def densify_core(field: GaussianField, stats: DensifyStats, noise: torch.Tensor,
     new_alive = survivors.clone()
     new_alive[dest] = True
     new_field = GaussianField(
-        xyz=place(field.xyz, child_xyz.reshape(-1, 3)[can_place]),
+        xyz=place(field.xyz, tracing.select("densify.xyz", child_xyz.reshape(-1, 3),
+                                            can_place)),
         features_dc=place(field.features_dc, field.features_dc[parent]),
         features_rest=place(field.features_rest, field.features_rest[parent]),
-        scaling=place(field.scaling, child_scaling.reshape(-1, 3)[can_place]),
+        scaling=place(field.scaling, tracing.select(
+            "densify.scaling", child_scaling.reshape(-1, 3), can_place)),
         rotation=place(field.rotation, field.rotation[parent]),
         opacity=place(field.opacity, field.opacity[parent]),
         language_feature=None if field.language_feature is None else

@@ -10,7 +10,11 @@ discarded and re-run at grown caps, as the JAX loop does.
 
 With `gui_port`, each iteration first serves the SIBR viewer (`utils/network_gui.py`).
 With `cfg.profile_dir`, a `torch.profiler` trace of iterations [profile_from,
-profile_from + profile_steps) is written there as a Chrome / TensorBoard trace JSON.
+profile_from + profile_steps) is written there as a Chrome / TensorBoard trace JSON,
+with the port's spans (`utils/tracing.py`) as `langsplat.*` annotations: `iteration`
+(the root; its call id is the iteration number) holding `train_step` (and its layers,
+`train/trainer.py`), the step's host reads (`sync.step.*`), `densify`, `prefetch_wait`,
+`evaluate` and `save`.
 The JAX loop's multi-device branches (data-parallel with ZeRO-2, Gaussian-sharded with
 shard-local densification, depth-sharded phase B) run inside a process group, one
 process per rank (`parallel/launch.py`, `parallel/layout.py`).
@@ -41,6 +45,7 @@ from langsplat_tpu_torch.parallel.gauss_sharded import gauss_train_step
 from langsplat_tpu_torch.parallel.layout import Layout
 from langsplat_tpu_torch.train import densify as dn
 from langsplat_tpu_torch.train import trainer as tr
+from langsplat_tpu_torch.utils import tracing
 from langsplat_tpu_torch.utils.logging import RunLogger, Timer
 
 
@@ -136,6 +141,7 @@ RENDER_BUDGET_CEILING = 1 << 24
 
 
 @torch.no_grad()
+@tracing.traced("render_full")
 def render_full(field, cam, pipe, active_sh_degree, include_feature, bg,
                 budget: int = 0, max_tiles: int = 0,
                 device: str | torch.device | None = None):
@@ -143,7 +149,11 @@ def render_full(field, cam, pipe, active_sh_degree, include_feature, bg,
     at a doubled instance budget / max_tiles cap until nothing is dropped: eval views
     can touch more tiles than training views, and the 3DGS rasterizer never truncates.
     `field` must already live on that device. Eval renders may grow past the
-    training-time policy cap, up to an absolute ceiling."""
+    training-time policy cap, up to an absolute ceiling.
+
+    Counted in `render_calls` and, each try, `render_attempts`; spans: `render_full`,
+    the camera's copy to the device (`sync.render_full.*`) and one `attempt` a try,
+    which holds `render` and the read of its drop counters."""
     device = resolve_device(device)
     if field.device.type != device.type:
         raise ValueError(f"field is on {field.device}, render device is {device}")
@@ -153,17 +163,22 @@ def render_full(field, cam, pipe, active_sh_degree, include_feature, bg,
     tmax_policy = TmaxPolicy(pipe, [cam])
     if max_tiles:
         tmax_policy.tmax = min(max_tiles, tmax_policy.grid_cap)
+    tracing.COUNTERS["render_calls"] += 1
     viewmatrix, projmatrix, campos = (
-        torch.as_tensor(m, dtype=torch.float32, device=field.device)
+        tracing.upload("render_full.camera", m, dtype=torch.float32, device=field.device)
         for m in (cam.world_view_transform, cam.full_proj_transform, cam.camera_center))
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=field.device)
+    bg = (torch.as_tensor(bg, dtype=torch.float32, device=field.device)
+          if isinstance(bg, torch.Tensor) else
+          tracing.upload("render_full.bg", bg, dtype=torch.float32, device=field.device))
     while True:
-        settings = make_settings(cam, pipe, active_sh_degree, include_feature,
-                                 field.capacity, budget=budget,
-                                 max_tiles=tmax_policy.tmax)
-        r = render(field, settings, viewmatrix, projmatrix, campos, bg)
-        dropped = int(r["instances_dropped"])
-        rect = int(r["rect_dropped"])
+        tracing.COUNTERS["render_attempts"] += 1
+        with tracing.span("attempt"):
+            settings = make_settings(cam, pipe, active_sh_degree, include_feature,
+                                     field.capacity, budget=budget,
+                                     max_tiles=tmax_policy.tmax)
+            r = render(field, settings, viewmatrix, projmatrix, campos, bg)
+            dropped = tracing.host_read("render_full.dropped", r["instances_dropped"])
+            rect = tracing.host_read("render_full.rect_dropped", r["rect_dropped"])
         if dropped == 0 and rect == 0:
             return r
         grew = False
@@ -186,21 +201,24 @@ def _device_image(cam, device):
     """The camera's ground-truth image on `device`, copied once and kept on the camera."""
     img = getattr(cam, "_dev_image", None)
     if img is None or img.device != device:
-        img = torch.as_tensor(cam.image).to(device)
+        img = tracing.upload("gt_image", cam.image, device=device)
         cam._dev_image = img
     return img
 
 
 def _camera_tensors(cam, device):
-    return tuple(torch.as_tensor(m, dtype=torch.float32).to(device) for m in (
-        cam.world_view_transform, cam.full_proj_transform, cam.camera_center))
+    return tuple(tracing.upload("camera", m, dtype=torch.float32, device=device)
+                 for m in (cam.world_view_transform, cam.full_proj_transform,
+                           cam.camera_center))
 
 
 class TraceWindow:
     """A `torch.profiler` trace over a window of training iterations: CPU activity, and
     the card's with a CUDA device; no shapes or stacks (a step makes ~10^4 host
-    events). `stop` writes the Chrome / TensorBoard trace JSON and returns where it
-    went, with the kernel launches (`ops/_build.LAUNCHES`) made inside the window."""
+    events). The window is one tracing session (`utils/tracing.py`): the trace holds
+    the port's `langsplat.*` spans. `stop` writes the Chrome / TensorBoard trace JSON
+    and returns where it went, with the session's counter increments (`counters`) and,
+    of them, the kernel launches (`launches`)."""
 
     def __init__(self, device: torch.device, first: int):
         from torch.profiler import ProfilerActivity, profile
@@ -208,7 +226,7 @@ class TraceWindow:
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         self.device, self.first = device, first
-        self.launches = dict(_build.LAUNCHES)
+        tracing.end_session()
         self.profiler = profile(activities=activities)
         self.profiler.start()
 
@@ -219,8 +237,9 @@ class TraceWindow:
         os.makedirs(profile_dir, exist_ok=True)
         path = os.path.join(profile_dir, f"iterations_{self.first}_{end}.pt.trace.json")
         self.profiler.export_chrome_trace(path)
-        return {"path": path, "iterations": (self.first, end),
-                "launches": {k: v - self.launches[k] for k, v in _build.LAUNCHES.items()}}
+        counts = tracing.session().counts
+        return {"path": path, "iterations": (self.first, end), "counters": counts,
+                "launches": {k: counts.get(f"launches.{k}", 0) for k in _build.LAUNCHES}}
 
     def close(self) -> None:
         """Stop the trace without writing it (the window did not end)."""
@@ -394,215 +413,239 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
                     window = None
                     logger.log(f"profiler trace ({cfg.profile_steps} steps) written to "
                                f"{trace['path']}")
-            if gui_port:
-                view_field = field
-                if layout.kind == "gauss":
-                    # the viewer renders the whole field, which no rank holds: gather
-                    # it for every frame of an iteration a viewer is connected in
-                    if gui is not None and gui.conn is None:
-                        gui.try_connect()
-                    connected = col.max_(torch.tensor(
-                        [int(gui is not None and gui.conn is not None)], device=device))
-                    view_field = layout.full_field(field) if int(connected[0]) else None
-                if gui is not None:
-                    gui.poll(lambda c, s: gui_render(view_field, c, s),
-                             mcfg.source_path, iteration, ocfg.iterations)
+            with tracing.span("iteration", call=iteration):
+                if gui_port:
+                    view_field = field
+                    if layout.kind == "gauss":
+                        # the viewer renders the whole field, which no rank holds:
+                        # gather it for every frame of an iteration a viewer is
+                        # connected in
+                        if gui is not None and gui.conn is None:
+                            gui.try_connect()
+                        connected = col.max_(torch.tensor(
+                            [int(gui is not None and gui.conn is not None)],
+                            device=device))
+                        view_field = (layout.full_field(field) if int(connected[0])
+                                      else None)
+                    if gui is not None:
+                        gui.poll(lambda c, s: gui_render(view_field, c, s),
+                                 mcfg.source_path, iteration, ocfg.iterations)
 
-            if iteration % 1000 == 0 and active_sh_degree < mcfg.sh_degree:
-                active_sh_degree += 1
+                if iteration % 1000 == 0 and active_sh_degree < mcfg.sh_degree:
+                    active_sh_degree += 1
 
-            if layout.kind == "data":
-                batch = [schedule_cam((iteration - 1) * dp_batch + j)[0]
-                         for j in range(dp_batch)]
-                cam = batch[0]
-                for c in batch[1:]:
-                    if (c.height, c.width) != (cam.height, cam.width):
-                        raise ValueError(
-                            "data-parallel training requires uniform image sizes across "
-                            f"the view batch, got {c.height}x{c.width} vs "
-                            f"{cam.height}x{cam.width}")
-                mine = rank_cams(iteration)
-                if prefetcher is not None:
-                    for c in mine + rank_cams(iteration + 1):
-                        prefetcher.schedule(c)
-                views = _views(mine, device)
-            else:
-                cam, epoch_pos = schedule_cam(iteration - 1)
-                if prefetcher is not None and epoch_pos + 1 < len(train_cams):
-                    prefetcher.schedule(train_cams[epoch_order[epoch_pos + 1]])
-                mine = [cam]
-                views = _views(mine, device)
-
-            def targets():
-                if include_feature:
-                    fm = [prefetcher.get(c) for c in mine]
-                    return [f for f, _ in fm], [m for _, m in fm]
-                return ([_device_image(c, device) for c in mine],
-                        [torch.ones((1, 1, 1), device=device)] * len(mine))
-
-            timer.start()
-            while True:
-                settings = make_settings(cam, pipe, active_sh_degree, include_feature,
-                                         capacity, budget=budget_policy.budget,
-                                         max_tiles=tmax_policy.tmax)
-                step_kw = dict(settings=settings, optimizer=optimizer,
-                               include_feature=include_feature,
-                               lambda_dssim=ocfg.lambda_dssim)
                 if layout.kind == "data":
-                    o = dp_train_step(field, opt_state, stats, *views, *targets(), bg,
-                                      group=layout.group, zero2=layout.zero2, **step_kw)
-                    out = tr.StepOutput(o.field, o.opt_state, o.stats, o.loss, o.loss,
-                                        torch.zeros(()), o.dropped, o.rect_dropped)
-                elif layout.kind == "gauss":
-                    o = gauss_train_step(field, opt_state, stats, *views, *targets(), bg,
-                                         capacity=capacity, gauss_group=layout.group,
-                                         **step_kw)
-                    out = tr.StepOutput(o.field, o.opt_state, o.stats, o.loss, o.loss,
-                                        torch.zeros(()), o.dropped, o.rect_dropped)
-                elif layout.kind == "depth":
-                    gt_feat, gt_mask = prefetcher.get(cam)
-                    nf, no, dloss, ddrop, drect = depth_feature_step(
-                        field, opt_state, *(m[0] for m in views), gt_feat, gt_mask, bg,
-                        settings=settings, optimizer=optimizer, group=layout.group)
-                    out = tr.StepOutput(nf, no, stats, dloss, dloss, torch.zeros(()),
-                                        ddrop, drect)
-                elif include_feature:
-                    gt_feat, gt_mask = prefetcher.get(cam)
-                    out = tr.train_step_feature(field, opt_state, stats,
-                                                *(m[0] for m in views), gt_feat, gt_mask,
-                                                bg, settings=settings,
-                                                optimizer=optimizer)
+                    batch = [schedule_cam((iteration - 1) * dp_batch + j)[0]
+                             for j in range(dp_batch)]
+                    cam = batch[0]
+                    for c in batch[1:]:
+                        if (c.height, c.width) != (cam.height, cam.width):
+                            raise ValueError(
+                                "data-parallel training requires uniform image sizes "
+                                f"across the view batch, got {c.height}x{c.width} vs "
+                                f"{cam.height}x{cam.width}")
+                    mine = rank_cams(iteration)
+                    if prefetcher is not None:
+                        for c in mine + rank_cams(iteration + 1):
+                            prefetcher.schedule(c)
+                    views = _views(mine, device)
                 else:
-                    out = tr.train_step_rgb(field, opt_state, stats,
-                                            *(m[0] for m in views),
-                                            _device_image(cam, device), bg,
-                                            settings=settings, optimizer=optimizer,
-                                            lambda_dssim=ocfg.lambda_dssim)
-                # multi-device steps report the group's summed counts, so every rank
-                # decides to retry alike
-                dropped, rect = int(out.dropped), int(out.rect_dropped)
-                if dropped == 0 and rect == 0:
-                    break
-                # discard the truncated step (field, opt_state and stats are still the
-                # values before it) and re-run it at the grown cap(s)
-                grew = False
-                if rect > 0 and tmax_policy.grow():
-                    logger.log(f"[iter {iteration}] max_tiles_per_gaussian -> "
-                               f"{tmax_policy.tmax} ({rect} rect positions dropped)")
-                    grew = True
-                if dropped > 0 and budget_policy.grow(capacity):
-                    logger.log(f"[iter {iteration}] instance budget -> "
-                               f"{budget_policy.budget} ({dropped} dropped)")
-                    grew = True
-                if not grew:
-                    msg = (f"[iter {iteration}] {dropped} instances dropped at the "
-                           f"budget cap {budget_policy.cap(capacity)} and {rect} "
-                           f"rect positions dropped at max_tiles={tmax_policy.tmax} "
-                           f"(capacity {capacity}, budget_factor "
-                           f"{pipe.budget_factor}); raise pipeline.budget_factor, or opt "
-                           f"into truncation with pipeline.allow_budget_truncation")
-                    if not pipe.allow_budget_truncation:
-                        raise RuntimeError(msg)
-                    logger.log("WARNING (truncated step): " + msg)
-                    break
-            field, opt_state, stats = out.field, out.opt_state, out.stats
-            elapsed = timer.stop()
-            step_ms.append(elapsed)
+                    cam, epoch_pos = schedule_cam(iteration - 1)
+                    if prefetcher is not None and epoch_pos + 1 < len(train_cams):
+                        prefetcher.schedule(train_cams[epoch_order[epoch_pos + 1]])
+                    mine = [cam]
+                    views = _views(mine, device)
 
-            loss_val = float(out.loss)
-            if pipe.debug:
-                logger.log(f"[iter {iteration}] debug: budget={budget_policy.budget} "
-                           f"cap={budget_policy.cap(capacity)} dropped={dropped} "
-                           f"alive={field.num_alive}/{field.capacity} (this rank)")
-            history.append(loss_val)
-            logger.progress(iteration, loss_val,
-                            extra=f" n={field.num_alive} {elapsed:.0f}ms")
-            logger.scalar("train_loss_patches/l1_loss", float(out.l1), iteration)
-            logger.scalar("train_loss_patches/total_loss", loss_val, iteration)
-            logger.scalar("iter_time", elapsed, iteration)
+                def targets():
+                    if include_feature:
+                        fm = [prefetcher.get(c) for c in mine]
+                        return [f for f, _ in fm], [m for _, m in fm]
+                    return ([_device_image(c, device) for c in mine],
+                            [torch.ones((1, 1, 1), device=device)] * len(mine))
 
-            # densification (phase A only)
-            if not include_feature and iteration < ocfg.densify_until_iter:
-                if (iteration > ocfg.densify_from_iter
-                        and iteration % ocfg.densification_interval == 0):
-                    # the split noise is a pure function of (seed, iteration), so a
-                    # resumed run, and every rank, draws what an uninterrupted run would
-                    gen = torch.Generator(device).manual_seed(
-                        cfg.seed * 1_000_003 + iteration)
-                    rule = dict(extent=scene.cameras_extent,
+                timer.start()
+                while True:
+                    settings = make_settings(cam, pipe, active_sh_degree,
+                                             include_feature, capacity,
+                                             budget=budget_policy.budget,
+                                             max_tiles=tmax_policy.tmax)
+                    step_kw = dict(settings=settings, optimizer=optimizer,
+                                   include_feature=include_feature,
+                                   lambda_dssim=ocfg.lambda_dssim)
+                    if layout.kind == "data":
+                        o = dp_train_step(field, opt_state, stats, *views, *targets(),
+                                          bg, group=layout.group, zero2=layout.zero2,
+                                          **step_kw)
+                        out = tr.StepOutput(o.field, o.opt_state, o.stats, o.loss, o.loss,
+                                            torch.zeros(()), o.dropped, o.rect_dropped)
+                    elif layout.kind == "gauss":
+                        o = gauss_train_step(field, opt_state, stats, *views,
+                                             *targets(), bg, capacity=capacity,
+                                             gauss_group=layout.group, **step_kw)
+                        out = tr.StepOutput(o.field, o.opt_state, o.stats, o.loss, o.loss,
+                                            torch.zeros(()), o.dropped, o.rect_dropped)
+                    elif layout.kind == "depth":
+                        gt_feat, gt_mask = prefetcher.get(cam)
+                        nf, no, dloss, ddrop, drect = depth_feature_step(
+                            field, opt_state, *(m[0] for m in views), gt_feat, gt_mask,
+                            bg, settings=settings, optimizer=optimizer,
+                            group=layout.group)
+                        out = tr.StepOutput(nf, no, stats, dloss, dloss, torch.zeros(()),
+                                            ddrop, drect)
+                    elif include_feature:
+                        gt_feat, gt_mask = prefetcher.get(cam)
+                        out = tr.train_step_feature(field, opt_state, stats,
+                                                    *(m[0] for m in views), gt_feat,
+                                                    gt_mask, bg, settings=settings,
+                                                    optimizer=optimizer)
+                    else:
+                        out = tr.train_step_rgb(field, opt_state, stats,
+                                                *(m[0] for m in views),
+                                                _device_image(cam, device), bg,
+                                                settings=settings, optimizer=optimizer,
+                                                lambda_dssim=ocfg.lambda_dssim)
+                    # multi-device steps report the group's summed counts, so every
+                    # rank decides to retry alike
+                    dropped = tracing.host_read("step.dropped", out.dropped)
+                    rect = tracing.host_read("step.rect_dropped", out.rect_dropped)
+                    if dropped == 0 and rect == 0:
+                        break
+                    # discard the truncated step (field, opt_state and stats are still
+                    # the values before it) and re-run it at the grown cap(s)
+                    grew = False
+                    if rect > 0 and tmax_policy.grow():
+                        logger.log(f"[iter {iteration}] max_tiles_per_gaussian -> "
+                                   f"{tmax_policy.tmax} ({rect} rect positions dropped)")
+                        grew = True
+                    if dropped > 0 and budget_policy.grow(capacity):
+                        logger.log(f"[iter {iteration}] instance budget -> "
+                                   f"{budget_policy.budget} ({dropped} dropped)")
+                        grew = True
+                    if not grew:
+                        msg = (f"[iter {iteration}] {dropped} instances dropped at the "
+                               f"budget cap {budget_policy.cap(capacity)} and {rect} "
+                               f"rect positions dropped at max_tiles={tmax_policy.tmax} "
+                               f"(capacity {capacity}, budget_factor "
+                               f"{pipe.budget_factor}); raise pipeline.budget_factor, "
+                               f"or opt into truncation with "
+                               f"pipeline.allow_budget_truncation")
+                        if not pipe.allow_budget_truncation:
+                            raise RuntimeError(msg)
+                        logger.log("WARNING (truncated step): " + msg)
+                        break
+                    tracing.COUNTERS["step_reruns"] += 1
+                field, opt_state, stats = out.field, out.opt_state, out.stats
+                elapsed = timer.stop()
+                step_ms.append(elapsed)
+
+                loss_val = tracing.host_read("step.loss", out.loss)
+                if pipe.debug:
+                    logger.log(f"[iter {iteration}] debug: budget={budget_policy.budget} "
+                               f"cap={budget_policy.cap(capacity)} dropped={dropped} "
+                               f"alive={field.num_alive}/{field.capacity} (this rank)")
+                history.append(loss_val)
+                logger.progress(iteration, loss_val,
+                                extra=f" n={field.num_alive} {elapsed:.0f}ms")
+                logger.scalar("train_loss_patches/l1_loss",
+                              tracing.host_read("step.l1", out.l1), iteration)
+                logger.scalar("train_loss_patches/total_loss", loss_val, iteration)
+                logger.scalar("iter_time", elapsed, iteration)
+
+                # densification (phase A only)
+                with tracing.span("densify"):
+                    if not include_feature and iteration < ocfg.densify_until_iter:
+                        if (iteration > ocfg.densify_from_iter
+                                and iteration % ocfg.densification_interval == 0):
+                            # the split noise is a pure function of (seed, iteration), so
+                            # a resumed run, and every rank, draws what an uninterrupted
+                            # run would
+                            gen = torch.Generator(device).manual_seed(
+                                cfg.seed * 1_000_003 + iteration)
+                            rule = dict(
+                                extent=scene.cameras_extent,
                                 grad_threshold=ocfg.densify_grad_threshold,
                                 percent_dense=ocfg.percent_dense, min_opacity=0.005,
-                                use_size_threshold=iteration > ocfg.opacity_reset_interval,
+                                use_size_threshold=(iteration
+                                                    > ocfg.opacity_reset_interval),
                                 size_threshold=20.0)
-                    if layout.kind == "gauss":
-                        # shard-local slots, serial-equal decisions
-                        noise = torch.randn((capacity, 2, 3), generator=gen,
-                                            dtype=field.xyz.dtype, device=device)
-                        res = sharded_densify(field, stats, noise, group=layout.group,
-                                              **rule)
-                    else:
-                        res = dn.densify_and_prune(field, stats, gen, **rule)
-                    field, stats = res.field, res.stats
-                    opt_state = tr.zero_moment_rows(opt_state,
-                                                    layout.local_mask(res.reset_mask))
-                    overflow = int(res.overflow)
-                    if overflow > 0:
-                        new_cap = layout.round_capacity(
-                            int(capacity * ocfg.capacity_growth_factor))
-                        logger.log(f"[iter {iteration}] capacity {capacity} -> {new_cap} "
-                                   f"(overflow {overflow})")
-                        field, opt_state, stats = layout.grow(field, opt_state, new_cap)
-                        capacity = new_cap
-                    logger.scalar("total_points", int(res.num_alive), iteration)
+                            if layout.kind == "gauss":
+                                # shard-local slots, serial-equal decisions
+                                noise = torch.randn((capacity, 2, 3), generator=gen,
+                                                    dtype=field.xyz.dtype, device=device)
+                                res = sharded_densify(field, stats, noise,
+                                                      group=layout.group, **rule)
+                            else:
+                                res = dn.densify_and_prune(field, stats, gen, **rule)
+                            field, stats = res.field, res.stats
+                            opt_state = tr.zero_moment_rows(
+                                opt_state, layout.local_mask(res.reset_mask))
+                            overflow = tracing.host_read("densify.overflow", res.overflow)
+                            if overflow > 0:
+                                new_cap = layout.round_capacity(
+                                    int(capacity * ocfg.capacity_growth_factor))
+                                logger.log(f"[iter {iteration}] capacity {capacity} -> "
+                                           f"{new_cap} (overflow {overflow})")
+                                field, opt_state, stats = layout.grow(field, opt_state,
+                                                                      new_cap)
+                                capacity = new_cap
+                            logger.scalar("total_points", tracing.host_read(
+                                "densify.num_alive", res.num_alive), iteration)
 
-                if iteration % ocfg.opacity_reset_interval == 0 or (
-                        mcfg.white_background and iteration == ocfg.densify_from_iter):
-                    field = dn.reset_opacity(field)
-                    rows = opt_state["opacity"]["mu"].shape[0]
-                    opt_state = tr.zero_moment_rows(
-                        opt_state, torch.ones(rows, dtype=torch.bool, device=device),
-                        only_label="opacity")
+                        if iteration % ocfg.opacity_reset_interval == 0 or (
+                                mcfg.white_background
+                                and iteration == ocfg.densify_from_iter):
+                            field = dn.reset_opacity(field)
+                            rows = opt_state["opacity"]["mu"].shape[0]
+                            opt_state = tr.zero_moment_rows(
+                                opt_state,
+                                torch.ones(rows, dtype=torch.bool, device=device),
+                                only_label="opacity")
 
-            saving = (iteration in cfg.test_iterations
-                      or (iteration in cfg.save_iterations and mcfg.model_path)
-                      or (iteration in cfg.checkpoint_iterations and mcfg.model_path))
-            if saving:
-                # every rank joins the gather; rank 0 reports and writes, the others
-                # wait for it at the barrier
-                full_field, full_opt, full_stats = layout.full(field, opt_state, stats)
-            if saving and main:
-                if iteration in cfg.test_iterations:
-                    report = evaluate_psnr(
-                        full_field, scene, pipe, active_sh_degree, include_feature, bg,
-                        budget=budget_policy.budget, max_tiles=tmax_policy.tmax,
-                        lf_path=mcfg.lf_path if include_feature else None,
-                        feature_level=mcfg.feature_level)
-                    for name, rep in report.items():
-                        logger.log(f"[ITER {iteration}] Evaluating {name}: L1 "
-                                   f"{rep['l1']:.5f} PSNR {rep['psnr']:.3f}")
-                        logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"],
-                                      iteration)
-                        logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"],
-                                      iteration)
-                        if rep.get("feature_l1") is not None:
-                            logger.log(f"[ITER {iteration}] Evaluating {name}: "
-                                       f"feature-L1 {rep['feature_l1']:.5f}")
-                            logger.scalar(f"{name}/loss_viewpoint - feature_l1",
-                                          rep["feature_l1"], iteration)
+                saving = (iteration in cfg.test_iterations
+                          or (iteration in cfg.save_iterations and mcfg.model_path)
+                          or (iteration in cfg.checkpoint_iterations and mcfg.model_path))
+                if saving:
+                    # every rank joins the gather; rank 0 reports and writes, the others
+                    # wait for it at the barrier
+                    full_field, full_opt, full_stats = layout.full(field, opt_state,
+                                                                   stats)
+                if saving and main:
+                    if iteration in cfg.test_iterations:
+                        with tracing.span("evaluate"):
+                            report = evaluate_psnr(
+                                full_field, scene, pipe, active_sh_degree,
+                                include_feature, bg, budget=budget_policy.budget,
+                                max_tiles=tmax_policy.tmax,
+                                lf_path=mcfg.lf_path if include_feature else None,
+                                feature_level=mcfg.feature_level)
+                        for name, rep in report.items():
+                            logger.log(f"[ITER {iteration}] Evaluating {name}: L1 "
+                                       f"{rep['l1']:.5f} PSNR {rep['psnr']:.3f}")
+                            logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"],
+                                          iteration)
+                            logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"],
+                                          iteration)
+                            if rep.get("feature_l1") is not None:
+                                logger.log(f"[ITER {iteration}] Evaluating {name}: "
+                                           f"feature-L1 {rep['feature_l1']:.5f}")
+                                logger.scalar(f"{name}/loss_viewpoint - feature_l1",
+                                              rep["feature_l1"], iteration)
 
-                if iteration in cfg.save_iterations and mcfg.model_path:
-                    logger.log(f"[ITER {iteration}] Saving Gaussians")
-                    scene.save(iteration, full_field)
+                    if iteration in cfg.save_iterations and mcfg.model_path:
+                        logger.log(f"[ITER {iteration}] Saving Gaussians")
+                        with tracing.span("save"):
+                            scene.save(iteration, full_field)
 
-                if iteration in cfg.checkpoint_iterations and mcfg.model_path:
-                    logger.log(f"[ITER {iteration}] Saving Checkpoint")
-                    field_io.save_checkpoint(
-                        os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"),
-                        full_field, full_opt, full_stats, iteration, spatial_lr_scale,
-                        active_sh_degree)
-            if saving:
-                del full_field, full_opt, full_stats
-                col.barrier(layout.group)
+                    if iteration in cfg.checkpoint_iterations and mcfg.model_path:
+                        logger.log(f"[ITER {iteration}] Saving Checkpoint")
+                        with tracing.span("save"):
+                            field_io.save_checkpoint(
+                                os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"),
+                                full_field, full_opt, full_stats, iteration,
+                                spatial_lr_scale, active_sh_degree)
+                if saving:
+                    del full_field, full_opt, full_stats
+                    col.barrier(layout.group)
 
         if window is not None:    # the loop ended inside the window
             trace = window.stop(cfg.profile_dir, ocfg.iterations + 1)
@@ -648,13 +691,15 @@ def evaluate_psnr(field, scene: Scene, pipe, active_sh_degree, include_feature, 
                             budget=budget, max_tiles=max_tiles, device=device)
             img = torch.clamp(r["render"], 0, 1)
             gt = torch.clamp(_device_image(cam, device), 0, 1)
-            l1s.append(float(loss_lib.l1_loss(img, gt)))
-            psnrs.append(float(loss_lib.psnr(img, gt)))
+            l1s.append(tracing.host_read("eval.l1", loss_lib.l1_loss(img, gt)))
+            psnrs.append(tracing.host_read("eval.psnr", loss_lib.psnr(img, gt)))
             if include_feature and lf_path:
                 gt_feat, gt_mask = cam.get_language_feature(lf_path, feature_level)
-                feat_l1s.append(float(loss_lib.masked_l1_loss(
-                    r["language_feature_image"], torch.as_tensor(gt_feat).to(device),
-                    torch.as_tensor(gt_mask).to(device))))
+                feat_l1 = loss_lib.masked_l1_loss(
+                    r["language_feature_image"],
+                    tracing.upload("eval.feature", gt_feat, device=device),
+                    tracing.upload("eval.mask", gt_mask, device=device))
+                feat_l1s.append(tracing.host_read("eval.feature_l1", feat_l1))
         out[name] = {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs)),
                      "feature_l1": float(np.mean(feat_l1s)) if feat_l1s else None}
     return out

@@ -15,6 +15,10 @@ state is plain tensors whose rows can be zeroed, padded and saved. Steps are out
 place: they return a new field, optimizer state and statistics and leave their inputs
 as they were, so the loop can drop a step whose render overflowed its caps and re-run
 it, as the JAX loop does.
+
+Spans (`utils/tracing.py`): `train_step`, and inside it `render` (ops/render.py),
+`loss`, `backward` (the `torch.autograd.grad` call), `optimizer` (`Adam.update`) and,
+in phase A, `stats` (the densification statistics and the PSNR).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from langsplat_tpu_torch.core import losses
 from langsplat_tpu_torch.models.gaussian_field import GaussianField
 from langsplat_tpu_torch.ops.render import RenderSettings, render
 from langsplat_tpu_torch.train.densify import DensifyStats, update_stats
+from langsplat_tpu_torch.utils import tracing
 
 PARAM_KEYS_RGB = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity")
 PARAM_KEYS_FEATURE = ("language_feature",)
@@ -220,11 +225,13 @@ def rgb_loss_and_grads(field: GaussianField, viewmatrix, projmatrix, campos, gt_
                       requires_grad=True)
     out = render(merge_params(field, params), settings, viewmatrix, projmatrix, campos,
                  bg, screenspace_offset=tap)
-    l1 = losses.l1_loss(out["render"], gt_image)
-    loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (
-        1.0 - losses.ssim(out["render"], gt_image))
+    with tracing.span("loss"):
+        l1 = losses.l1_loss(out["render"], gt_image)
+        loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (
+            1.0 - losses.ssim(out["render"], gt_image))
     keys = list(params)
-    grads = torch.autograd.grad(loss, [params[k] for k in keys] + [tap])
+    with tracing.span("backward"):
+        grads = torch.autograd.grad(loss, [params[k] for k in keys] + [tap])
     return (loss.detach(), l1.detach(), out, dict(zip(keys, grads[:-1])), grads[-1])
 
 
@@ -235,12 +242,15 @@ def feature_loss_and_grads(field: GaussianField, viewmatrix, projmatrix, campos,
     params = _leaves(extract_params(field, include_feature=True))
     out = render(merge_params(field, params), settings, viewmatrix, projmatrix, campos,
                  bg)
-    loss = losses.masked_l1_loss(out["language_feature_image"], gt_feature,
-                                 feature_mask)
-    (grad,) = torch.autograd.grad(loss, [params["language_feature"]])
+    with tracing.span("loss"):
+        loss = losses.masked_l1_loss(out["language_feature_image"], gt_feature,
+                                     feature_mask)
+    with tracing.span("backward"):
+        (grad,) = torch.autograd.grad(loss, [params["language_feature"]])
     return loss.detach(), out, {"language_feature": grad}
 
 
+@tracing.traced("train_step")
 def train_step_rgb(field: GaussianField, opt_state: dict, stats: DensifyStats,
                    viewmatrix, projmatrix, campos, gt_image, bg, *,
                    settings: RenderSettings, optimizer: Adam,
@@ -249,16 +259,19 @@ def train_step_rgb(field: GaussianField, opt_state: dict, stats: DensifyStats,
         field, viewmatrix, projmatrix, campos, gt_image, bg, settings=settings,
         lambda_dssim=lambda_dssim)
     with torch.no_grad():
-        params, opt_state = optimizer.update(
-            grads, opt_state, extract_params(field, include_feature=False))
-        stats = update_stats(stats, ss_grad, out["visibility_filter"], out["radii"],
-                             settings.image_width, settings.image_height)
-        image = out["render"].detach()
-        psnr = losses.psnr(torch.clamp(image, 0, 1), torch.clamp(gt_image, 0, 1))
+        with tracing.span("optimizer"):
+            params, opt_state = optimizer.update(
+                grads, opt_state, extract_params(field, include_feature=False))
+        with tracing.span("stats"):
+            stats = update_stats(stats, ss_grad, out["visibility_filter"], out["radii"],
+                                 settings.image_width, settings.image_height)
+            image = out["render"].detach()
+            psnr = losses.psnr(torch.clamp(image, 0, 1), torch.clamp(gt_image, 0, 1))
     return StepOutput(merge_params(field, params), opt_state, stats, loss, l1, psnr,
                       out["instances_dropped"], out["rect_dropped"])
 
 
+@tracing.traced("train_step")
 def train_step_feature(field: GaussianField, opt_state: dict, stats: DensifyStats,
                        viewmatrix, projmatrix, campos, gt_feature, feature_mask, bg, *,
                        settings: RenderSettings, optimizer: Adam) -> StepOutput:
@@ -266,7 +279,7 @@ def train_step_feature(field: GaussianField, opt_state: dict, stats: DensifyStat
     loss, out, grads = feature_loss_and_grads(
         field, viewmatrix, projmatrix, campos, gt_feature, feature_mask, bg,
         settings=settings)
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("optimizer"):
         params, opt_state = optimizer.update(
             grads, opt_state, extract_params(field, include_feature=True))
     return StepOutput(merge_params(field, params), opt_state, stats, loss, loss,

@@ -11,6 +11,8 @@ from datetime import datetime
 
 import torch
 
+from langsplat_tpu_torch.utils import tracing
+
 
 class RunLogger:
     def __init__(self, log_dir: str | None = None, quiet: bool = False,
@@ -62,6 +64,7 @@ class Timer:
 
     def stop(self) -> float:
         if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with tracing.synced("timer"):
+                torch.cuda.synchronize(self.device)
         self.elapsed_ms = (time.perf_counter() - self.t0) * 1e3
         return self.elapsed_ms

@@ -23,6 +23,7 @@ import os
 import subprocess
 import sys
 import traceback
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -810,6 +811,91 @@ def test_render_full_of_an_empty_view_on_card(cuda_device, tmp_path):
     bg = torch.tensor(OVERFLOW_BG)[:, None, None].expand_as(out["render"])
     assert torch.equal(out["render"], bg)
 
+
+def sync_warnings(fn) -> int:
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): the syncs it was warned of."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def sync_case(case, device):
+    """The call of `case` on the card: a phase-A step (the culled binning, and past a
+    tile cap of 128 the unculled one), a phase-B step, render_full from the policy's caps
+    and from an eighth of the budget and a tile cap of 2 (retries)."""
+    from langsplat_tpu_torch.config import OptimizationConfig, PipelineConfig
+    from langsplat_tpu_torch.models.gaussian_field import from_numpy
+    from langsplat_tpu_torch.train import trainer
+    from langsplat_tpu_torch.train.densify import DensifyStats
+    from langsplat_tpu_torch.train.loop import render_full
+    if case.startswith("render_full"):
+        field = from_numpy(overflow_params(), device)
+        cam, pipe = overflow_camera(), PipelineConfig()
+        start = {}
+        if case == "render_full_retries":
+            start = dict(budget=first_budget(field, cam, pipe, device), max_tiles=2)
+        return lambda: render_full(field, cam, pipe, 3, True, OVERFLOW_BG, device=device,
+                                   **start)
+    feature = case == "feature"
+    n, w, h = 2000, 160, 120
+    field = from_numpy(field_params(n, 6, 3 if feature else 0), device)
+    cam = camera(w, h)
+    settings = RenderSettings(
+        image_height=h, image_width=w, tanfovx=cam["tanfovx"], tanfovy=cam["tanfovy"],
+        sh_degree=3, budget=64 * n, include_feature=feature,
+        max_tiles_per_gaussian=256 if case == "rgb_unculled" else 32,
+        grad_mode="feature" if feature else "full")
+    optimizer = trainer.make_optimizer(OptimizationConfig(), 1.0, feature)
+    state = optimizer.init(trainer.extract_params(field, feature))
+    stats = DensifyStats.zeros(n, device)
+    mats = [torch.tensor(cam[k], device=device) for k in ("viewmatrix", "projmatrix",
+                                                          "campos")]
+    rng = np.random.default_rng(7)
+    gt = torch.tensor(rng.uniform(size=(3, h, w)).astype(np.float32), device=device)
+    bg = torch.zeros(3, device=device)
+    if feature:
+        mask = torch.tensor((rng.uniform(size=(1, h, w)) < 0.8).astype(np.float32),
+                            device=device)
+        return lambda: trainer.train_step_feature(field, state, stats, *mats, gt, mask, bg,
+                                                  settings=settings, optimizer=optimizer)
+    return lambda: trainer.train_step_rgb(field, state, stats, *mats, gt, bg,
+                                          settings=settings, optimizer=optimizer,
+                                          lambda_dssim=0.2)
+
+
+#: the syncs of each training-step case, as the tracer counts them on the CPU too
+#: (tests/test_torch_tracing.py); None: render_full, whose tries vary
+SYNC_CASES = {"rgb": 7, "rgb_unculled": 6, "feature": 6, "render_full": None,
+              "render_full_retries": None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SYNC_CASES))
+def test_every_sync_on_the_card_is_counted(cuda_device, case):
+    """Every synchronizing operation that torch.cuda.set_sync_debug_mode("warn") sees
+    in one training step or one render_full is one increment of the tracer's
+    `host_syncs` (utils/tracing.py): none goes uncounted, none is counted twice."""
+    from langsplat_tpu_torch.utils.tracing import COUNTERS
+    call = sync_case(case, cuda_device)
+    call()                            # builds the kernels; first-use work
+    attempts = COUNTERS["render_attempts"]
+    before = COUNTERS["host_syncs"]
+    warned = sync_warnings(call)
+    counted = COUNTERS["host_syncs"] - before
+    tries = COUNTERS["render_attempts"] - attempts
+    print(f"{case}: {warned} syncs warned of, {counted} counted, {tries} tries")
+    assert warned == counted > 0
+    if SYNC_CASES[case] is not None:
+        assert counted == SYNC_CASES[case]
+    else:   # 4 copies of the camera, then 7 or 8 a try: binning's 5 or 6, 2 drop reads
+        assert tries >= (2 if case == "render_full_retries" else 1)
+        assert 4 + 7 * tries <= counted <= 4 + 8 * tries
 
 if __name__ == "__main__":
     torch.save(globals()[sys.argv[1]](torch.device("cuda")), sys.argv[2])
