@@ -9,11 +9,14 @@ times both paths.
 
 Phases (any failure ends the run with a non-zero exit):
   1. the device: name, count, and `nvidia-smi` name and power limit;
-  2. the kernels (csrc/blend_fwd.cu, blend_bwd.cu, segsum.cu) are built with nvcc, one
-     process per source, all started together, then each is compared with its plain
-     version at small odd sizes: the blend forward and backward with F = 0 and 3 and
-     both grad modes, the segment sum with segments longer than 32 (the forward
-     kernel, wherever it is compared, also twice with itself, bit for bit);
+  2. the kernels (csrc/blend_fwd.cu, blend_bwd.cu, segsum.cu, preprocess.cu) are built
+     with nvcc, one process per source, all started together, then each is compared with
+     its plain version at small odd sizes: the blend forward and backward with F = 0 and
+     3 and both grad modes, the segment sum with segments longer than 32 (the forward
+     kernel, wherever it is compared, also twice with itself, bit for bit), projection
+     and SH at SH degrees 0-4 and with precomputed covariances and colours (radii, tile
+     rects and visible bit-equal, floats within PREP_ULPS, gradients against autograd's
+     of the plain version);
   3. the render path: a synthetic COLMAP scene (3 cameras at 1024x768) and a trained
      model of 1M Gaussians (sh_degree 3, 3 language-feature channels, made from
      --seed) written as PLY + npz checkpoint, rendered by
@@ -23,7 +26,10 @@ Phases (any failure ends the run with a non-zero exit):
   4. render timings at full width, view 0: one whole `render_full` (host clock, ending
      in a synchronize), and with CUDA events preprocess, binning and the blend kernel,
      the plain version's time, the kernel's bound from this run's work, and the share
-     of (instance, warp-region) pairs the blend kernels' cull keeps;
+     of (instance, warp-region) pairs the blend kernels' cull keeps; the projection and
+     SH kernels forward and backward on phase 3's 1M-Gaussian field against the plain
+     version and autograd (checked as in phase 2), with their times, the plain
+     version's and their bytes bounds;
   4b. the overflow path: `render_full` of view 0 (features) from an eighth of the
      instance budget that view needs and a tile cap of 2, each attempt's budget, tile
      cap and drops logged; the launch counters are zeroed just before and read just
@@ -186,7 +192,9 @@ TRAIN_STEPS = 20
 # of ~50 px radius, the tile cap grown past the culled range): past the default cap of
 # 6 instances per Gaussian of capacity, at which the training loop refuses to truncate.
 BUDGET_FLAGS = ["--budget_factor", "24"]
-SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu"]
+SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu", "preprocess.cu"]
+PREP_ULPS = 4         # projection and SH kernel's float outputs vs plain, in float32 ulps
+PREP_TOL = 1e-5       # its gradients vs autograd of plain, relative to each leaf's norm
 GUARD_BYTES = 1 << 16       # guard words on each side of a guarded kernel output
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, FP32 outside the tensor cores
@@ -547,6 +555,163 @@ def small_comparisons(device) -> dict:
     worst["segsum"] = max(worst["segsum"], seg_rel)
     worst["segsum_abs"] = max(worst["segsum_abs"], seg_abs)
     return worst
+
+
+def float_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance between a and b in float32 units in the last place (NaN in the
+    same places, else 2**30)."""
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return 1 << 30
+
+    def ordered(x):
+        i = x.view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    keep = ~torch.isnan(a)
+    return int((ordered(a[keep]) - ordered(b[keep])).abs().max()) if bool(keep.any()) else 0
+
+
+PREP_EXACT = ("radii", "tiles_min", "tiles_max", "visible")
+PREP_FLOATS = ("means2d", "depths", "conics", "colors")
+PREP_LEAVES = ("means3d", "scales", "quats", "shs", "cov3d_precomp", "colors_precomp")
+
+
+def preprocess_args(leaves: dict, cam, w: int, h: int, sh_degree: int, device) -> tuple:
+    """preprocess's positional and keyword arguments for `leaves` (means3d, scales,
+    quats, shs, and optionally cov3d_precomp, colors_precomp, alive) seen by `cam`."""
+    mats = [torch.as_tensor(m, device=device) for m in
+            (cam.world_view_transform, cam.full_proj_transform, cam.camera_center)]
+    args = [leaves[k] for k in ("means3d", "scales", "quats", "shs")] + mats
+    kw = {k: leaves[k] for k in ("cov3d_precomp", "colors_precomp", "alive") if k in leaves}
+    return args, dict(kw, image_height=h, image_width=w, tanfovx=cam.tanfovx,
+                      tanfovy=cam.tanfovy, sh_degree=sh_degree, tile_size=TILE)
+
+
+def preprocess_grads(fn, args, kw, weights=None):
+    """Gradients of a random linear loss of every float output of `fn` with respect to
+    the leaves that require grad, and the loss's weights."""
+    out = fn(*args, **kw)
+    if weights is None:
+        weights = [torch.randn(getattr(out, f).shape, device=out.means2d.device)
+                   for f in PREP_FLOATS]
+    loss = sum((getattr(out, f) * wt).sum() for f, wt in zip(PREP_FLOATS, weights))
+    named = dict(zip(("means3d", "scales", "quats", "shs"), args[:4]), **kw)
+    leaves = [k for k in PREP_LEAVES if isinstance(named.get(k), torch.Tensor)
+              and named[k].requires_grad]
+    grads = torch.autograd.grad(loss, [named[k] for k in leaves], allow_unused=True)
+    return dict(zip(leaves, grads)), weights
+
+
+def compare_preprocess(args, kw) -> dict:
+    """The projection and SH kernels against the plain version on these inputs: exact
+    outputs' mismatches, the float outputs' worst ulps, each leaf gradient's worst error
+    over the norm of autograd's gradient of the plain version (a leaf neither reaches is
+    left out); the forward launched twice, bit for bit."""
+    with torch.no_grad():
+        got = projection.preprocess(*args, **kw)
+        again = projection.preprocess(*args, **kw)
+        ref = projection.preprocess_plain(*args, **kw)
+    torch.cuda.synchronize()
+    out = dict(mismatches=sum(int((getattr(got, f) != getattr(ref, f)).sum())
+                              for f in PREP_EXACT),
+               ulps=max(float_ulps(getattr(got, f), getattr(ref, f)) for f in PREP_FLOATS),
+               repeat_equal=all(torch.equal(a, b) for a, b in zip(got, again)),
+               visible=int(got.visible.sum()))
+    want, weights = preprocess_grads(projection.preprocess_plain, args, kw)
+    have, _ = preprocess_grads(projection.preprocess, args, kw, weights)
+    out["grad_rel"] = max(float((have[k] - r).abs().max()) / float(r.norm())
+                          for k, r in want.items() if r is not None)
+    return out
+
+
+def check_preprocess(phase: str, res: dict) -> None:
+    if not (res["mismatches"] == 0 and res["ulps"] <= PREP_ULPS and res["visible"] > 0
+            and res["grad_rel"] <= PREP_TOL and res["repeat_equal"]):
+        raise RuntimeError(f"{phase}: the projection and SH kernels disagree with the "
+                           f"plain version: {res}")
+
+
+def preprocess_comparisons(device, n: int = 5000) -> dict:
+    """Projection and SH at small odd sizes: SH degrees 0-4, and precomputed covariances
+    and colours with an alive mask, from random fields about a generic camera. Returns
+    the worst of each of compare_preprocess's numbers."""
+    worst = dict(mismatches=0, ulps=0, grad_rel=0.0, repeat_equal=True, visible=n)
+    for sh_degree, precomputed, seed in ((0, False, 1), (1, False, 2), (2, False, 3),
+                                         (3, False, 4), (4, False, 5), (3, True, 6)):
+        rng = np.random.default_rng(seed)
+        g = bench_gaussians(n, rng)
+        leaves = dict(means3d=g["means"], scales=8.0 * g["scales"], quats=g["quats"],
+                      shs=0.5 * rng.normal(size=(n, max(16, (sh_degree + 1) ** 2), 3)))
+        if precomputed:
+            cov = transforms.strip_symmetric(transforms.build_covariance_3d(
+                torch.tensor(leaves["scales"]), torch.tensor(leaves["quats"])))
+            leaves.update(cov3d_precomp=cov.numpy(), colors_precomp=rng.uniform(size=(n, 3)))
+        leaves = {k: torch.tensor(v, dtype=torch.float32, device=device,
+                                  requires_grad=True) for k, v in leaves.items()}
+        if precomputed:
+            leaves["alive"] = torch.tensor(rng.uniform(size=n) < 0.7, device=device)
+        args, kw = preprocess_args(leaves, generic_camera(333, 211, seed), 333, 211,
+                                   sh_degree, device)
+        res = compare_preprocess(args, kw)
+        log(f"  preprocess vs plain 333x211 n={n} SH {sh_degree}"
+            f"{' precomputed' if precomputed else ''}: {json.dumps(res)}")
+        worst = dict(mismatches=worst["mismatches"] + res["mismatches"],
+                     ulps=max(worst["ulps"], res["ulps"]),
+                     grad_rel=max(worst["grad_rel"], res["grad_rel"]),
+                     repeat_equal=worst["repeat_equal"] and res["repeat_equal"],
+                     visible=min(worst["visible"], res["visible"]))
+    return worst
+
+
+def generic_camera(w: int, h: int, seed: int):
+    """A camera at a random small rotation and offset, looking down +z at the bench
+    box."""
+    from langsplat_tpu_torch.data.cameras import Camera
+    rng = np.random.default_rng(seed)
+    axis = rng.normal(size=3)
+    angle = 0.3 * rng.uniform()
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    k /= np.linalg.norm(axis)
+    rot = np.eye(3) + math.sin(angle) * k + (1 - math.cos(angle)) * k @ k
+    return Camera(uid=seed, colmap_id=seed + 1, R=rot, T=rng.uniform(-0.3, 0.3, 3),
+                  fov_x=FOV_X, fov_y=2 * math.atan(math.tan(FOV_X / 2) * h / w),
+                  image=None, image_name=f"generic_{seed}", width=w, height=h)
+
+
+def preprocess_full_width(field, cam, device) -> dict:
+    """Phase 4's projection and SH: the kernels forward and backward on `field` (view
+    `cam`, SH 3) against the plain version and autograd, their times, the plain
+    version's (its backward as its forward and autograd backward less its forward) and
+    their bytes bounds (each input read once, each output written once)."""
+    leaves = dict(means3d=field.xyz, scales=field.get_scaling, quats=field.rotation,
+                  shs=field.get_features)
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in leaves.items()}
+    args, kw = preprocess_args(dict(leaves, alive=field.alive), cam, WIDTH, HEIGHT, 3,
+                               device)
+    out = compare_preprocess(args, kw)
+    n, k = field.capacity, leaves["shs"].shape[1]
+    with torch.no_grad():
+        out["ms"] = cuda_ms(lambda: projection.preprocess(*args, **kw), reps=20)
+        out["plain_ms"] = cuda_ms(lambda: projection.preprocess_plain(*args, **kw), reps=3)
+        weights = [torch.randn(shape, device=device)
+                   for shape in ((n, 2), (n,), (n, 3), (n, 3))]
+        options = dict(image_height=HEIGHT, image_width=WIDTH, tanfovx=cam.tanfovx,
+                       tanfovy=cam.tanfovy, sh_degree=3, tile_size=TILE,
+                       scale_modifier=1.0)
+        detached = [a.detach() for a in args[:4]]
+        out["bwd_ms"] = cuda_ms(lambda: projection.preprocess_backward_cuda(
+            *detached, None, *args[4:7], options, *weights, (True,) * 5), reps=20)
+    plain_both = cuda_ms(lambda: preprocess_grads(projection.preprocess_plain, args, kw,
+                                                  weights), reps=3)
+    out["bwd_plain_ms"] = plain_both - out["plain_ms"]
+    sh_bytes = 4 * 3 * 16          # SH degree 3: 16 coefficients of 3 floats
+    read = 12 + 12 + 16 + sh_bytes + 1
+    written = 8 + 4 + 12 + 4 + 12 + 8 + 8 + 1
+    out["bound_ms"] = n * (read + written) / HBM_BYTES_PER_S * 1e3
+    grads_in = 8 + 4 + 12 + 12
+    out["bwd_bound_ms"] = (n * (grads_in + read - 1 + 12 + 12 + 16 + 4 * 3 * k)
+                           / HBM_BYTES_PER_S * 1e3)
+    out["bytes_per_gaussian"] = [read + written, grads_in + read - 1 + 12 + 12 + 16 + 12 * k]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1493,7 +1658,7 @@ def preprocess_phase(tmp: str, seed: int, device) -> dict:
     launches = dict(_build.LAUNCHES)
     create_s = time.perf_counter() - t0
     if launches != {k: 0 for k in launches}:
-        raise RuntimeError(f"a blend or segment-sum kernel ran on this path: {launches}")
+        raise RuntimeError(f"a hand-written kernel ran on this path: {launches}")
     # the device's idle share over each view: create again under torch.profiler
     t0 = time.perf_counter()
     prof_dir = os.path.join(tmp, "pre_profiled")
@@ -1642,7 +1807,8 @@ TRACE_RUNS = {"A": dict(steps=10, first=6, window=3, traced=(6, 9)),
               "B": dict(steps=4, first=2, window=2, traced=(2, 4))}
 # the hand-written kernels' symbols in a trace
 KERNEL_SYMBOLS = {"blend_fwd": "blend_fwd_kernel", "blend_bwd": "blend_bwd_kernel",
-                  "segsum": "segsum_kernel"}
+                  "segsum": "segsum_kernel", "preprocess_fwd": "preprocess_fwd_kernel",
+                  "preprocess_bwd": "preprocess_bwd_kernel"}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 GUI_FRAMES = 3              # frames the viewer holds iteration 1 for, then it releases
 LOADER_REPS = 10
@@ -1684,27 +1850,54 @@ def read_trace(trace: dict) -> dict:
                                      calls_per_step=c / steps) for n, (t, c) in top])
 
 
+def trace_child(argv: list, queue) -> None:
+    """11a's train CLI run, in a spawned process: its loss history, trace record and
+    kernel launches, put on `queue`."""
+    from langsplat_tpu_torch.cli.train_cli import main as train_main
+    result = train_main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    queue.put(dict(history=[float(h) for h in result["history"]], trace=result["trace"],
+                   launches=dict(_build.LAUNCHES)))
+
+
 def trace_phase(tmp: str, train_scene: str, run_prefix: str) -> dict:
     """11a: the train CLI with a trace window, phase A from the SfM points and phase B
     from phase 5's phase-A checkpoint; the trace must hold each kernel's launches in the
-    counts the launch counters moved by inside the window."""
-    from langsplat_tpu_torch.cli.train_cli import main as train_main
+    counts the launch counters moved by inside the window (every kernel's in phase A,
+    all but the projection and SH backward's in phase B). Each run is a new process:
+    in this one, hundreds of seconds old by now, the profiler's device timestamps ran
+    up to ~8 ms ahead of the host's on the H100, and a window dropped the kernels of its
+    first milliseconds."""
+    import multiprocessing
+    from queue import Empty
     checkpoint = os.path.join(run_prefix + "_-1", f"chkpnt{TRAIN_STEPS}.npz")
     phase_flags = {"A": ["--no_include_feature"],
                    "B": ["--feature_level", "1", "--start_checkpoint", checkpoint]}
     out = {}
+    spawn = multiprocessing.get_context("spawn")
     for name, run in TRACE_RUNS.items():
-        zero_launches()
         t0 = time.perf_counter()
-        result = train_main(
+        queue = spawn.Queue()
+        child = spawn.Process(target=trace_child, args=(
             ["-s", train_scene, "-m", os.path.join(tmp, f"trace_run_{name}"), "--quiet",
              "--iterations", str(run["steps"]), "--sh_degree", "3", *BUDGET_FLAGS,
              "--test_iterations", "999999", "--checkpoint_iterations", "999999",
              "--profile_dir", os.path.join(tmp, f"trace_{name}"),
              "--profile_from", str(run["first"]), "--profile_steps", str(run["window"]),
-             *phase_flags[name]])
-        torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
+             *phase_flags[name]], queue))
+        child.start()
+        result = None
+        while result is None and (child.is_alive() or not queue.empty()):
+            try:
+                result = queue.get(timeout=5)      # drained before the join
+            except Empty:
+                pass
+        child.join(timeout=120)
+        if result is None or child.exitcode != 0:
+            raise RuntimeError(f"11a ({name}): the train CLI's process exited with "
+                               f"{child.exitcode}")
+        launches = result["launches"]
         seconds = time.perf_counter() - t0
         history, trace = result["history"], result["trace"]
         if len(history) != run["steps"] or not np.all(np.isfinite(history)):
@@ -1714,7 +1907,10 @@ def trace_phase(tmp: str, train_scene: str, run_prefix: str) -> dict:
                                f"{run['traced']}, got {trace}")
         device = read_trace(trace)
         counted = trace["launches"]
-        if device["launches_in_trace"] != counted or min(counted.values()) < 1:
+        # phase B's geometry is frozen: projection and SH have no backward there
+        needed = {k: k != "preprocess_bwd" or name == "A" for k in counted}
+        if (device["launches_in_trace"] != counted
+                or any((counted[k] >= 1) != needed[k] for k in counted)):
             raise RuntimeError(f"11a ({name}): kernel launches in the trace "
                                f"{device['launches_in_trace']}, counted in the window "
                                f"{counted}")
@@ -1931,8 +2127,10 @@ def tiled_phase(model_dir: str, scene_dir: str, device) -> dict:
             prep, inst, bargs[2], bargs[5], bargs[8], max_per_tile=MAX_PER_TILE, **size),
             reps=2)
     del field, tiled, k1, prep, inst, bargs
-    if sum(tiled_launches.values()) != 0:
-        raise RuntimeError(f"11d: the tiled render launched kernels {tiled_launches}")
+    if (any(tiled_launches[k] for k in ("blend_fwd", "blend_bwd", "segsum"))
+            or tiled_launches["preprocess_fwd"] < 1):
+        raise RuntimeError(f"11d: the tiled render launched blend kernels, or did not "
+                           f"project through the kernel: {tiled_launches}")
     if not max(errs.values()) <= TILED_TOL:
         raise RuntimeError(f"11d: the tiled render differs from K1's on untruncated "
                            f"tiles: {errs}")
@@ -1975,7 +2173,8 @@ def tiled_phase(model_dir: str, scene_dir: str, device) -> dict:
         p, i, opac, f, bg_, image_height=h, image_width=w, tile_size=TILE), "cpu")
     bit_equal = all(torch.equal(a, b) for a, b in zip(first, second))
     grad_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(first, plain))
-    if not bit_equal or bwd_launches != {"blend_fwd": 0, "blend_bwd": 0, "segsum": 2}:
+    if not bit_equal or bwd_launches != {"blend_fwd": 0, "blend_bwd": 0, "segsum": 2,
+                                         "preprocess_fwd": 0, "preprocess_bwd": 0}:
         raise RuntimeError(f"11d: tiled backward bit-equal {bit_equal}, launches "
                            f"{bwd_launches}")
     if not grad_err <= TILED_GRAD_TOL:
@@ -2480,6 +2679,8 @@ def main() -> int:
                   segsum_rel=small["segsum"])
     if not (small["blend_fwd"] <= TOL and small["blend_bwd"] <= BWD_TOL):
         raise RuntimeError(f"a kernel disagrees with its plain version: {small}")
+    prep_small = preprocess_comparisons(device)
+    check_preprocess("phase 2", prep_small)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 3. the render path: the render CLI at full width
@@ -2583,6 +2784,9 @@ def main() -> int:
                 log(f"phase 4 ({mode}) profile: " + json.dumps(profile_render(
                     lambda: render_full(gpu_field, cam, pipe, 3, feat, [0.0, 0.0, 0.0],
                                         device=device))))
+        prep_full = preprocess_full_width(gpu_field, cam, device)
+        log("phase 4 (projection and SH, 1M Gaussians, SH 3): " + json.dumps(prep_full))
+        check_preprocess("phase 4", prep_full)
         # 4b. the overflow path: render_full's retries from an eighth of the budget
         overflow = overflow_phase(gpu_field, cam, pipe, device,
                                   int(runs[True][3].num_instances))
@@ -2752,6 +2956,27 @@ def main() -> int:
              tol=SEG_TOL, tol_of="row-relative", feature_ms=tb["segsum_ms"],
              feature_bound_ms=tb["segsum_bound_ms"],
              feature_library_ms=tb["segsum_library_ms"]),
+        dict(name="preprocess_fwd", route="cuda",
+             source="langsplat_tpu_torch/csrc/preprocess.cu",
+             replaces="none: XLA fuses langsplat_tpu/ops/projection.py:102 preprocess",
+             launches=launches["preprocess_fwd"],
+             launches_by_path=by_path["preprocess_fwd"],
+             exact_mismatches=prep_small["mismatches"] + prep_full["mismatches"],
+             max_ulps=max(prep_small["ulps"], prep_full["ulps"]),
+             ms=prep_full["ms"], plain_ms=prep_full["plain_ms"],
+             bound_ms=prep_full["bound_ms"], bound_by="bytes", library_ms=None,
+             tol=PREP_ULPS, tol_of="float32 ulps; radii, tile rects, visible exact",
+             bytes_per_gaussian=prep_full["bytes_per_gaussian"][0]),
+        dict(name="preprocess_bwd", route="cuda",
+             source="langsplat_tpu_torch/csrc/preprocess.cu",
+             replaces="none: autograd of the plain version",
+             launches=launches["preprocess_bwd"],
+             launches_by_path=by_path["preprocess_bwd"],
+             max_rel_err=max(prep_small["grad_rel"], prep_full["grad_rel"]),
+             ms=prep_full["bwd_ms"], plain_ms=prep_full["bwd_plain_ms"],
+             bound_ms=prep_full["bwd_bound_ms"], bound_by="bytes", library_ms=None,
+             tol=PREP_TOL, tol_of="leaf-norm-relative",
+             bytes_per_gaussian=prep_full["bytes_per_gaussian"][1]),
     ]
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))

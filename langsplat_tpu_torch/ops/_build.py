@@ -30,6 +30,9 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+#: flags of one source beyond NVCC_FLAGS: preprocess.cu rounds every + and * alone, as
+#: the plain PyTorch version's elementwise kernels do
+SOURCE_FLAGS = {"preprocess.cu": ("--fmad=false",)}
 
 #: kernel name -> launches through its wrapper since the last reset
 LAUNCHES = tracing.CounterView("launches.")
@@ -49,9 +52,13 @@ def nvcc_path() -> str:
     return found
 
 
+def nvcc_flags(source: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+
+
 def library_path(source: str) -> Path:
     """Where the library for `source` (a file name under csrc/) is, or will be, built."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(nvcc_flags(source)).encode())
     for path in [CSRC_DIR / source, *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(path.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
@@ -67,7 +74,7 @@ def build(sources: list[str]) -> list[Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+        cmd = [nvcc_path(), *nvcc_flags(source), "-o", str(tmp), str(CSRC_DIR / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         pending.append((source, out, tmp, proc))

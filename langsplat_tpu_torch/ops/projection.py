@@ -12,16 +12,29 @@ numeric conventions:
 The K=4 and K=3 contractions are written out elementwise, as in the JAX package, so
 they are exact float32 whatever the matmul precision setting (TF32 would move
 projected positions by pixels).
+
+Dispatch is by device only, as in `rasterize_cuda`: CPU tensors take the plain version
+(`preprocess_plain`, the elementwise code above); CUDA tensors take the kernels of
+`csrc/preprocess.cu`, one launch forward and one backward, joined by `_Preprocess`;
+anything the kernels do not take raises. The kernels repeat the plain version's float32
+arithmetic in its order, so radii, tile rects and `visible` are bit-equal to it on the
+card.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from langsplat_tpu_torch.core import sh as sh_lib
 from langsplat_tpu_torch.core import transforms
+from langsplat_tpu_torch.ops import _build
+
+_SOURCE = "preprocess.cu"
+#: most SH coefficients a row (degree 4) the kernels take
+MAX_COEFFS = 25
 
 
 class PreprocessOut(NamedTuple):
@@ -91,7 +104,7 @@ def _trunc_clip(x: torch.Tensor, hi: int) -> torch.Tensor:
     return torch.clamp(x.to(torch.int32), 0, hi)
 
 
-def preprocess(
+def preprocess_plain(
     means3d: torch.Tensor,
     scales: torch.Tensor,
     quats: torch.Tensor,
@@ -111,11 +124,8 @@ def preprocess(
     colors_precomp: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
 ) -> PreprocessOut:
-    """Vectorized preprocess over the (padded) Gaussian axis.
-
-    `alive` masks padded capacity slots: dead slots come out invisible with radius 0,
-    so they never enter binning or blending.
-    """
+    """Plain PyTorch version of `preprocess` (same arguments and result), vectorized
+    over the (padded) Gaussian axis; autograd gives its backward."""
     focal_x = image_width / (2.0 * tanfovx)
     focal_y = image_height / (2.0 * tanfovy)
 
@@ -179,3 +189,263 @@ def preprocess(
         tiles_max=torch.stack([tmax_x, tmax_y], dim=-1),
         visible=visible,
     )
+
+
+# ---------------------------------------------------------------------------
+# The kernels of csrc/preprocess.cu
+# ---------------------------------------------------------------------------
+
+def _check(name, t, dtype, shape, device, contiguous=True):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_kernel_inputs(means3d, scales, quats, shs, viewmatrix, projmatrix, campos, *,
+                        sh_degree, tile_size, cov3d_precomp=None, alive=None) -> None:
+    """Raise on inputs the kernels do not take: float32 contiguous tensors of the plain
+    version's shapes on one device (`shs` [N, K, 3] with (sh_degree + 1)**2 <= K <=
+    MAX_COEFFS, or None when colours are given; `scales` and `quats` only without
+    `cov3d_precomp`), a bool `alive`, and float32 camera tensors (of any strides) that
+    do not require grad."""
+    device = means3d.device
+    n = means3d.shape[0]
+    f32 = torch.float32
+    _check("means3d", means3d, f32, (n, 3), device)
+    if cov3d_precomp is not None:
+        _check("cov3d_precomp", cov3d_precomp, f32, (n, 6), device)
+    else:
+        _check("scales", scales, f32, (n, 3), device)
+        _check("quats", quats, f32, (n, 4), device)
+    if shs is not None:
+        if not 0 <= sh_degree <= 4:
+            raise ValueError(f"SH degree must be in [0,4], got {sh_degree}")
+        if shs.dim() != 3:
+            raise ValueError(f"shs must be [N, K, 3], got {tuple(shs.shape)}")
+        k = shs.shape[1]
+        if not (sh_degree + 1) ** 2 <= k <= MAX_COEFFS:
+            raise ValueError(f"shs holds {k} coefficients a row; the kernels take "
+                             f"{(sh_degree + 1) ** 2} (degree {sh_degree}) to {MAX_COEFFS}")
+        _check("shs", shs, f32, (n, k, 3), device)
+    for name, t, shape in (("viewmatrix", viewmatrix, (4, 4)),
+                           ("projmatrix", projmatrix, (4, 4)), ("campos", campos, (3,))):
+        _check(name, t, f32, shape, device, contiguous=False)   # read through strides
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad; the kernels give no gradient of the "
+                             f"camera")
+    if alive is not None:
+        _check("alive", alive, torch.bool, (n,), device)
+    if tile_size < 1:
+        raise ValueError(f"tile_size must be positive, got {tile_size}")
+
+
+def _scalars(n, shs, viewmatrix, projmatrix, campos, options) -> list:
+    """The kernels' size and camera arguments, rounded to float32 as the plain version's
+    Python scalars are, and the camera tensors' strides."""
+    o = options
+    ts = o["tile_size"]
+    focal_x = o["image_width"] / (2.0 * o["tanfovx"])
+    focal_y = o["image_height"] / (2.0 * o["tanfovy"])
+    return [n, 0 if shs is None else shs.shape[1], o["sh_degree"], o["image_width"],
+            o["image_height"], ts, (o["image_width"] + ts - 1) // ts,
+            (o["image_height"] + ts - 1) // ts, *(ctypes.c_float(v) for v in (
+                focal_x, focal_y, 1.3 * o["tanfovx"], 1.3 * o["tanfovy"],
+                o["scale_modifier"])), *viewmatrix.stride(), *projmatrix.stride(),
+            campos.stride(0)]
+
+
+_SCALAR_TYPES = [ctypes.c_int] * 8 + [ctypes.c_float] * 5 + [ctypes.c_int] * 5
+
+
+def _kernel(name: str, argtypes: list):
+    fn = getattr(_build.load(_SOURCE), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def preprocess_forward_cuda(means3d, scales, quats, shs, cov3d_precomp, viewmatrix,
+                            projmatrix, campos, alive, options) -> tuple:
+    """Launch the forward kernel on the tensors' CUDA device and current stream:
+    (means2d, depths, conics, radii, tiles_min, tiles_max, visible, colors), colors None
+    without `shs`. `options` holds preprocess's keyword sizes; inputs that
+    `check_kernel_inputs` refuses raise."""
+    if means3d.device.type != "cuda":
+        raise ValueError(f"preprocess_forward_cuda needs CUDA tensors, got "
+                         f"{means3d.device}")
+    check_kernel_inputs(means3d, scales, quats, shs, viewmatrix, projmatrix, campos,
+                        sh_degree=options["sh_degree"], tile_size=options["tile_size"],
+                        cov3d_precomp=cov3d_precomp, alive=alive)
+    device = means3d.device
+    n = means3d.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    means2d = torch.empty((n, 2), dtype=f32, device=device)
+    depths = torch.empty((n,), dtype=f32, device=device)
+    conics = torch.empty((n, 3), dtype=f32, device=device)
+    radii = torch.empty((n,), dtype=i32, device=device)
+    tiles_min = torch.empty((n, 2), dtype=i32, device=device)
+    tiles_max = torch.empty((n, 2), dtype=i32, device=device)
+    visible = torch.empty((n,), dtype=torch.bool, device=device)
+    colors = None if shs is None else torch.empty((n, 3), dtype=f32, device=device)
+    fn = _kernel("preprocess_fwd", [ctypes.c_void_p] * 9 + _SCALAR_TYPES
+                 + [ctypes.c_void_p] * 9)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*map(_ptr, (means3d, scales, quats, shs, cov3d_precomp, alive, viewmatrix,
+                             projmatrix, campos)),
+                 *_scalars(n, shs, viewmatrix, projmatrix, campos, options),
+                 *map(_ptr, (means2d, depths, conics, radii, colors, tiles_min, tiles_max,
+                             visible)), stream)
+    if err != 0:
+        raise RuntimeError(f"preprocess_fwd kernel launch failed with CUDA error {err}")
+    _build.LAUNCHES["preprocess_fwd"] += 1
+    return means2d, depths, conics, radii, tiles_min, tiles_max, visible, colors
+
+
+def _grad_in(g, n, width):
+    """(pointer, row stride, column stride) of an incoming gradient, read in place."""
+    if g is None:
+        return [None, 0, 0] if width else [None, 0]
+    if g.dtype != torch.float32 or tuple(g.shape) != ((n, width) if width else (n,)):
+        raise ValueError(f"a preprocess output gradient has dtype {g.dtype} and shape "
+                         f"{tuple(g.shape)}")
+    return [g.data_ptr(), *g.stride()] if width else [g.data_ptr(), g.stride(0)]
+
+
+def preprocess_backward_cuda(means3d, scales, quats, shs, cov3d_precomp, viewmatrix,
+                             projmatrix, campos, options, g_means2d, g_depths, g_conics,
+                             g_colors, needs) -> tuple:
+    """Launch the backward kernel: (dL/dmeans3d, dL/dscales, dL/dquats, dL/dshs,
+    dL/dcov3d_precomp) from the output gradients (each may be None, and is read through
+    its strides), an entry None where `needs` (flags in that order) is False or the
+    input was not given."""
+    device = means3d.device
+    n = means3d.shape[0]
+    f32 = torch.float32
+
+    def out(flag, like):
+        return (torch.empty(like.shape, dtype=f32, device=device)
+                if flag and like is not None else None)
+
+    grads = [out(flag, like) for flag, like in zip(
+        needs, (means3d, None if cov3d_precomp is not None else scales,
+                None if cov3d_precomp is not None else quats, shs, cov3d_precomp))]
+    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn = _kernel("preprocess_bwd", [ptr] * 8 + _SCALAR_TYPES
+                 + [ptr, ll, ll, ptr, ll, ptr, ll, ll, ptr, ll, ll] + [ptr] * 6)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*map(_ptr, (means3d, scales, quats, shs, cov3d_precomp, viewmatrix,
+                             projmatrix, campos)),
+                 *_scalars(n, shs, viewmatrix, projmatrix, campos, options),
+                 *_grad_in(g_means2d, n, 2), *_grad_in(g_depths, n, 0),
+                 *_grad_in(g_conics, n, 3), *_grad_in(g_colors, n, 3),
+                 *map(_ptr, grads), stream)
+    if err != 0:
+        raise RuntimeError(f"preprocess_bwd kernel launch failed with CUDA error {err}")
+    _build.LAUNCHES["preprocess_bwd"] += 1
+    return tuple(grads)
+
+
+class _Preprocess(torch.autograd.Function):
+    """Projection and SH: the forward kernel, and the backward kernel for the inputs
+    that require grad (nothing is saved when none does)."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, quats, shs, cov3d_precomp, viewmatrix, projmatrix,
+                campos, alive, options):
+        outs = preprocess_forward_cuda(means3d, scales, quats, shs, cov3d_precomp,
+                                       viewmatrix, projmatrix, campos, alive, options)
+        ctx.mark_non_differentiable(*outs[3:7])     # radii, tile rect, visible
+        ctx.set_materialize_grads(False)           # absent output gradients stay None
+        ctx.options = options
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(means3d, scales, quats, shs, cov3d_precomp, viewmatrix,
+                                  projmatrix, campos)
+        return outs if shs is not None else outs[:7]
+
+    @staticmethod
+    def backward(ctx, g_means2d, g_depths, g_conics, *rest):
+        g_colors = rest[4] if len(rest) > 4 else None
+        needs = ctx.needs_input_grad[:5]
+        if g_means2d is None and g_depths is None and g_conics is None and g_colors is None:
+            return (None,) * 10
+        grads = preprocess_backward_cuda(*ctx.saved_tensors, ctx.options, g_means2d,
+                                         g_depths, g_conics, g_colors, needs)
+        return grads + (None,) * 5
+
+
+def preprocess_cuda(means3d, scales, quats, shs, viewmatrix, projmatrix, campos, *,
+                    image_height, image_width, tanfovx, tanfovy, sh_degree, tile_size,
+                    scale_modifier=1.0, cov3d_precomp=None, colors_precomp=None,
+                    alive=None) -> PreprocessOut:
+    """`preprocess` on the kernels (CUDA tensors; arguments and result as there):
+    one launch forward and, when an input requires grad, one in the backward. Inputs of
+    other strides are made contiguous first; other dtypes, shapes or a camera that
+    requires grad raise."""
+    if colors_precomp is None and shs is None:
+        raise ValueError("either shs or colors_precomp must be given")
+    if colors_precomp is not None:
+        shs = None
+    if cov3d_precomp is not None:
+        scales = quats = None
+    # the kernels take contiguous rows; a field's leaves may be column views of a flat
+    # buffer (the data-parallel steps' `unflat_rows`): copied here, as the plain version
+    # reads them, with autograd through the copy
+    means3d, scales, quats, shs, cov3d_precomp, alive = (
+        None if t is None else t.contiguous()
+        for t in (means3d, scales, quats, shs, cov3d_precomp, alive))
+    options = dict(image_height=image_height, image_width=image_width, tanfovx=tanfovx,
+                   tanfovy=tanfovy, sh_degree=sh_degree, tile_size=tile_size,
+                   scale_modifier=scale_modifier)
+    out = _Preprocess.apply(means3d, scales, quats, shs, cov3d_precomp, viewmatrix,
+                            projmatrix, campos, alive, options)
+    means2d, depths, conics, radii, tiles_min, tiles_max, visible = out[:7]
+    return PreprocessOut(
+        means2d=means2d, depths=depths, conics=conics, radii=radii,
+        colors=colors_precomp if colors_precomp is not None else out[7],
+        tiles_min=tiles_min, tiles_max=tiles_max, visible=visible)
+
+
+def preprocess(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    shs: torch.Tensor | None,
+    viewmatrix: torch.Tensor,
+    projmatrix: torch.Tensor,
+    campos: torch.Tensor,
+    *,
+    image_height: int,
+    image_width: int,
+    tanfovx: float,
+    tanfovy: float,
+    sh_degree: int,
+    tile_size: int,
+    scale_modifier: float = 1.0,
+    cov3d_precomp: torch.Tensor | None = None,
+    colors_precomp: torch.Tensor | None = None,
+    alive: torch.Tensor | None = None,
+) -> PreprocessOut:
+    """Per-Gaussian screen-space quantities, over the (padded) Gaussian axis.
+
+    `alive` masks padded capacity slots: dead slots come out invisible with radius 0,
+    so they never enter binning or blending. CPU tensors take the plain version; CUDA
+    tensors take the kernels.
+    """
+    fn = preprocess_cuda if means3d.device.type == "cuda" else preprocess_plain
+    return fn(means3d, scales, quats, shs, viewmatrix, projmatrix, campos,
+              image_height=image_height, image_width=image_width, tanfovx=tanfovx,
+              tanfovy=tanfovy, sh_degree=sh_degree, tile_size=tile_size,
+              scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+              colors_precomp=colors_precomp, alive=alive)

@@ -50,6 +50,7 @@ PREFIX = "langsplat."
 COUNTERS: dict[str, int] = {
     "host_syncs": 0, "render_calls": 0, "render_attempts": 0, "step_reruns": 0,
     "launches.blend_fwd": 0, "launches.blend_bwd": 0, "launches.segsum": 0,
+    "launches.preprocess_fwd": 0, "launches.preprocess_bwd": 0,
     "feature_loads.native": 0, "feature_loads.numpy": 0}
 
 

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA kernels (blend forward, blend backward, segment
-sum) against their plain PyTorch versions, and the whole render and one training step of
-each phase on the card against the same on the CPU.
+sum, projection and SH forward and backward) against their plain PyTorch versions, and
+the whole render and one training step of each phase on the card against the same on
+the CPU.
 
 Every test here needs a CUDA device; each one decides that in the `cuda_device` fixture
 and skips without one. This file imports only torch, numpy and the port, so it runs on
@@ -509,6 +510,206 @@ def test_collectives_on_card_tensors(cuda_device):
         assert (out["world"], out["backend"]) == (2, "gloo")
         assert out["device"].startswith("cuda"), out["device"]
         assert max(out["errors"].values()) <= 1e-5, (r, out["errors"])
+
+
+# ---------------------------------------------------------------------------
+# Projection and SH: the kernels of csrc/preprocess.cu against the plain version
+# ---------------------------------------------------------------------------
+
+def rotated_camera(w, h, fov=0.8):
+    """A camera with a generic rotation and translation (row-vector matrices, numpy)."""
+    q = np.array([0.98, 0.1, -0.15, 0.05])
+    q = q / np.linalg.norm(q)
+    a, b, c, d = q
+    rot = np.array([[1 - 2 * (c * c + d * d), 2 * (b * c - a * d), 2 * (b * d + a * c)],
+                    [2 * (b * c + a * d), 1 - 2 * (b * b + d * d), 2 * (c * d - a * b)],
+                    [2 * (b * d - a * c), 2 * (c * d + a * b), 1 - 2 * (b * b + c * c)]])
+    view = transforms.world_to_view(rot, np.array([0.2, -0.1, 0.5])).T
+    fov_y = fov * h / w
+    proj = transforms.projection_matrix(0.01, 100.0, fov, fov_y).T
+    return dict(viewmatrix=view, projmatrix=(view @ proj).astype(np.float32),
+                campos=np.linalg.inv(view)[3, :3].astype(np.float32),
+                tanfovx=float(np.tan(fov / 2)), tanfovy=float(np.tan(fov_y / 2)))
+
+
+#: (name, options): SH degrees 0-4, the alive mask with precomputed covariances and
+#: colours, Gaussians behind the camera, odd image sizes and tile sizes (12 is not a
+#: power of two: the card divides by its float reciprocal)
+PREPROCESS_CASES = {
+    **{f"sh{d}": dict(sh_degree=d) for d in range(4)},
+    "sh4": dict(sh_degree=4, num_coeffs=25),
+    "sh2_k16_alive": dict(sh_degree=2, alive=0.7),
+    "precomputed": dict(cov3d=True, colors=True, alive=0.7),
+    "precomputed_cov": dict(cov3d=True, sh_degree=3),
+    "behind_w77_t8": dict(behind=True, w=77, h=53, tile=8, sh_degree=1),
+    "behind_w50_t12": dict(behind=True, w=50, h=37, tile=12, sh_degree=3),
+    "dc_clamped": dict(sh_degree=3, dc=-1.5),
+}
+
+
+def preprocess_case(name, device, n=4000, seed=0, grad=False):
+    """preprocess's arguments for one case of PREPROCESS_CASES on `device`, leaves that
+    require grad when `grad`: a field of n Gaussians around and behind a rotated
+    camera; many project past the +-1.3 tanfov clamp, and `dc` shifts the SH DC term
+    so that many colours clamp at 0."""
+    o = dict(sh_degree=0, num_coeffs=16, alive=None, cov3d=False, colors=False,
+             behind=False, w=160, h=120, tile=16, dc=0.0)
+    o.update(PREPROCESS_CASES[name])
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(-3.0, 9.0, (n, 1)) if o["behind"] else rng.uniform(0.3, 9.0, (n, 1))
+    means = np.concatenate([rng.uniform(-4, 4, (n, 2)), z], 1)
+    scales = np.exp(rng.uniform(np.log(0.01), np.log(0.6), (n, 3)))
+    quats = rng.normal(size=(n, 4))
+    shs = 0.5 * rng.normal(size=(n, o["num_coeffs"], 3))
+    shs[:, 0] += o["dc"]
+    arrays = dict(means3d=means, scales=scales, quats=quats, shs=shs)
+    if o["cov3d"]:
+        rot = torch.tensor(quats / np.linalg.norm(quats, axis=1, keepdims=True))
+        cov = transforms.build_covariance_3d(torch.tensor(scales), rot)
+        arrays["cov3d_precomp"] = transforms.strip_symmetric(cov).numpy()
+    if o["colors"]:
+        arrays["colors_precomp"] = rng.uniform(size=(n, 3))
+    tensors = {k: torch.tensor(v, dtype=torch.float32, device=device,
+                               requires_grad=grad) for k, v in arrays.items()}
+    cam = rotated_camera(o["w"], o["h"])
+    kw = dict(tensors, **{k: torch.tensor(cam[k], device=device)
+                          for k in ("viewmatrix", "projmatrix", "campos")})
+    if o["alive"] is not None:
+        kw["alive"] = torch.tensor(rng.uniform(size=n) < o["alive"], device=device)
+    kw.update(image_height=o["h"], image_width=o["w"], tanfovx=cam["tanfovx"],
+              tanfovy=cam["tanfovy"], sh_degree=o["sh_degree"], tile_size=o["tile"])
+    return kw
+
+
+def call_preprocess(fn, kw):
+    kw = dict(kw)
+    args = [kw.pop(k) for k in ("means3d", "scales", "quats", "shs", "viewmatrix",
+                                "projmatrix", "campos")]
+    return fn(*args, **kw)
+
+
+def ulps(a, b):
+    """Largest distance in float32 units in the last place between a and b (NaN in
+    the same places, else a large number)."""
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return 1 << 30
+
+    def ordered(x):
+        i = x.view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    keep = ~torch.isnan(a)
+    if not bool(keep.any()):
+        return 0
+    return int((ordered(a[keep]) - ordered(b[keep])).abs().max())
+
+
+PREP_FLOATS = ("means2d", "depths", "conics", "colors")
+PREP_EXACT = ("radii", "tiles_min", "tiles_max", "visible")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PREPROCESS_CASES))
+def test_preprocess_kernel_matches_plain(cuda_device, name):
+    """The forward kernel against the plain version on the card: radii, tile rects and
+    `visible` bit-equal, the float outputs within 4 ulp; one launch a call."""
+    kw = preprocess_case(name, cuda_device)
+    launches = _build.LAUNCHES["preprocess_fwd"]
+    got = call_preprocess(projection.preprocess, kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["preprocess_fwd"] == launches + 1
+    ref = call_preprocess(projection.preprocess_plain, kw)
+    for field in PREP_EXACT:
+        g, r = getattr(got, field), getattr(ref, field)
+        assert g.dtype == r.dtype and g.shape == r.shape, field
+        assert torch.equal(g, r), (field, int((g != r).sum()))
+    for field in PREP_FLOATS:
+        assert ulps(getattr(got, field), getattr(ref, field)) <= 4, field
+    if "colors_precomp" in kw:
+        assert got.colors is kw["colors_precomp"]
+    assert 0 < int(got.visible.sum()) < got.visible.numel()
+
+
+PREP_LEAVES = ("means3d", "scales", "quats", "shs", "cov3d_precomp", "colors_precomp")
+
+
+def preprocess_grads(fn, kw, seed=1):
+    """dL/d(each leaf that requires grad) of a random linear loss of every float
+    output of `fn`, and the outputs."""
+    out = call_preprocess(fn, kw)
+    rng = np.random.default_rng(seed)
+    weights = [torch.tensor(rng.normal(size=tuple(getattr(out, f).shape)),
+                            dtype=torch.float32, device=out.means2d.device)
+               for f in PREP_FLOATS]
+    loss = sum((getattr(out, f) * w).sum() for f, w in zip(PREP_FLOATS, weights))
+    leaves = [k for k in PREP_LEAVES if k in kw and kw[k].requires_grad]
+    grads = torch.autograd.grad(loss, [kw[k] for k in leaves], allow_unused=True)
+    return dict(zip(leaves, grads)), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PREPROCESS_CASES))
+def test_preprocess_backward_kernel_matches_autograd(cuda_device, name):
+    """The backward kernel against torch.autograd of the plain version on the card:
+    each leaf's gradient within 1e-5 of the norm of the leaf's reference gradient
+    (clamped colours and clamped x/z included); one backward launch a call."""
+    kw = preprocess_case(name, cuda_device, grad=True)
+    ref, _ = preprocess_grads(projection.preprocess_plain, kw)
+    launches = _build.LAUNCHES["preprocess_bwd"]
+    got, out = preprocess_grads(projection.preprocess, kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["preprocess_bwd"] == launches + 1
+    clamped = (out.colors == 0).float().mean()
+    if name == "dc_clamped":
+        assert 0.1 < float(clamped) < 0.9
+    for k, r in ref.items():
+        if r is None:        # an input the outputs do not depend on
+            assert got[k] is None, k
+            continue
+        assert got[k] is not None and got[k].shape == r.shape, k
+        norm = float(r.norm())
+        assert norm > 0 and bool(torch.isfinite(got[k]).all()), k
+        err = float((got[k] - r).abs().max())
+        assert err <= 1e-5 * norm, (k, err, norm)
+
+
+@pytest.mark.cuda
+def test_preprocess_kernels_are_deterministic(cuda_device):
+    kw = preprocess_case("sh3", cuda_device, grad=True)
+    first, out = preprocess_grads(projection.preprocess, kw)
+    second, out2 = preprocess_grads(projection.preprocess, kw)
+    for field in PREP_FLOATS + PREP_EXACT:
+        assert torch.equal(getattr(out, field), getattr(out2, field)), field
+    for k in first:
+        assert torch.equal(first[k], second[k]), k
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_refuses_what_it_does_not_take(cuda_device):
+    """The launch wrapper refuses a non-contiguous input; `preprocess` copies one first
+    (a data-parallel step's leaves are column views of one flat buffer) and gives the
+    contiguous call's outputs, bit for bit. Both refuse float64 inputs, a camera that
+    requires grad and too few SH coefficients."""
+    kw = preprocess_case("sh3", cuda_device)
+    rows = torch.cat([kw["means3d"], kw["scales"]], dim=1)
+    strided = dict(kw, means3d=rows[:, :3], scales=rows[:, 3:])
+    assert not strided["means3d"].is_contiguous()
+    options = {k: kw[k] for k in ("image_height", "image_width", "tanfovx", "tanfovy",
+                                  "sh_degree", "tile_size")}
+    with pytest.raises(ValueError, match="contiguous"):
+        projection.preprocess_forward_cuda(
+            *(strided[k] for k in ("means3d", "scales", "quats", "shs")), None,
+            *(kw[k] for k in ("viewmatrix", "projmatrix", "campos")), None,
+            dict(options, scale_modifier=1.0))
+    got = call_preprocess(projection.preprocess, strided)
+    ref = call_preprocess(projection.preprocess, kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError, match="dtype"):
+        call_preprocess(projection.preprocess, dict(kw, scales=kw["scales"].double()))
+    grad_cam = dict(kw, campos=kw["campos"].clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="requires grad"):
+        call_preprocess(projection.preprocess, grad_cam)
+    with pytest.raises(ValueError, match="coefficients"):
+        call_preprocess(projection.preprocess, dict(kw, sh_degree=4))
 
 
 # ---------------------------------------------------------------------------

@@ -111,3 +111,97 @@ def test_preprocess_behind_camera_and_odd_tiles_match_jax():
     j, t = both_preprocess(cam, means, scales, quats, colors=colors, tile_size=8)
     assert not np.asarray(j.visible).all() and np.asarray(j.visible).any()
     assert_prep_match(j, t)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: CPU tensors take the plain version; the kernels' input checks
+# ---------------------------------------------------------------------------
+
+def port_inputs(n=120, seed=40, sh_degree=3, precomputed=False, grad=False):
+    """The port's preprocess arguments for a random scene before the rotated camera."""
+    from langsplat_tpu_torch.core import transforms as ttf
+    cam = torch_camera(rotated_camera())
+    means, scales, quats, colors, _, _ = random_scene(n, seed=seed)
+    shs = np.random.default_rng(seed).normal(size=(n, 16, 3)).astype(np.float32) * 0.5
+    kw = {k: torch.tensor(v, requires_grad=grad) for k, v in
+          dict(means3d=means, scales=scales, quats=quats, shs=shs).items()}
+    if precomputed:
+        cov = ttf.strip_symmetric(ttf.build_covariance_3d(
+            torch.tensor(scales), torch.tensor(quats)))
+        kw["cov3d_precomp"] = cov.detach().requires_grad_(grad)
+        kw["colors_precomp"] = torch.tensor(colors, requires_grad=grad)
+        kw["alive"] = torch.tensor(np.random.default_rng(seed).uniform(size=n) < 0.7)
+    kw.update({k: cam[k] for k in ("viewmatrix", "projmatrix", "campos")})
+    kw.update(image_height=cam["image_height"], image_width=cam["image_width"],
+              tanfovx=cam["tanfovx"], tanfovy=cam["tanfovy"], sh_degree=sh_degree,
+              tile_size=16)
+    return kw
+
+
+def run_port(fn, kw):
+    kw = dict(kw)
+    args = [kw.pop(k) for k in ("means3d", "scales", "quats", "shs", "viewmatrix",
+                                "projmatrix", "campos")]
+    return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("sh_degree,precomputed", [(0, False), (3, False), (1, True)])
+def test_preprocess_on_cpu_is_the_plain_version(monkeypatch, sh_degree, precomputed):
+    """CPU tensors never reach the kernels' build (no launch counted), and preprocess's
+    outputs and gradients are the plain version's, bit for bit."""
+    from langsplat_tpu_torch.ops import _build
+
+    def no_build(source):
+        raise AssertionError(f"{source} built for CPU tensors")
+    monkeypatch.setattr(_build, "load", no_build)
+    kw = port_inputs(sh_degree=sh_degree, precomputed=precomputed, grad=True)
+    launches = dict(_build.LAUNCHES)
+    outs = [run_port(fn, kw) for fn in (tproj.preprocess, tproj.preprocess_plain)]
+    assert dict(_build.LAUNCHES) == launches
+    leaves = [kw[k] for k in ("means3d", "scales", "quats", "shs", "cov3d_precomp",
+                              "colors_precomp") if k in kw]
+    weights = [torch.randn(outs[0].means2d.shape[0], 3, generator=torch.Generator()
+                           .manual_seed(i)) for i in range(4)]
+    grads = []
+    for out in outs:
+        for name in tproj.PreprocessOut._fields:
+            assert getattr(out, name).dtype == getattr(outs[1], name).dtype
+        loss = ((out.means2d * weights[0][:, :2]).sum() + (out.depths * weights[1][:, 0]).sum()
+                + (out.conics * weights[2]).sum() + (out.colors * weights[3]).sum())
+        grads.append(torch.autograd.grad(loss, leaves, allow_unused=True))
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(*grads):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+
+
+def test_kernel_input_checks():
+    """What the kernels refuse, checked before a launch (the check runs on any device):
+    a non-contiguous or float64 input, a camera that requires grad, more or fewer SH
+    coefficients than the kernels take, an alive mask that is not bool. A camera of
+    other strides is read through them."""
+    kw = port_inputs()
+
+    def check(**over):
+        k = dict(kw, **over)
+        tproj.check_kernel_inputs(
+            k["means3d"], k["scales"], k["quats"], k["shs"], k["viewmatrix"],
+            k["projmatrix"], k["campos"], sh_degree=k["sh_degree"],
+            tile_size=k["tile_size"], alive=k.get("alive"))
+
+    check()
+    check(viewmatrix=kw["viewmatrix"].T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        check(means3d=kw["means3d"].T.contiguous().T)
+    with pytest.raises(ValueError, match="dtype"):
+        check(quats=kw["quats"].double())
+    with pytest.raises(ValueError, match="requires grad"):
+        check(projmatrix=kw["projmatrix"].clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="coefficients"):
+        check(sh_degree=4)
+    with pytest.raises(ValueError, match="coefficients"):
+        check(shs=torch.zeros((120, tproj.MAX_COEFFS + 1, 3)), sh_degree=4)
+    with pytest.raises(ValueError, match="dtype"):
+        check(alive=torch.ones(120, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        run_port(tproj.preprocess_cuda, kw)

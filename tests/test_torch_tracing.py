@@ -280,7 +280,8 @@ def test_counter_views_share_the_registry(monkeypatch):
     assert _build.LAUNCHES["segsum"] == 5 and cameras.FEATURE_LOADS["numpy"] == 7
     _build.LAUNCHES["segsum"] += 1
     assert COUNTERS["launches.segsum"] == 6
-    assert set(_build.LAUNCHES) == {"blend_fwd", "blend_bwd", "segsum"}
+    assert set(_build.LAUNCHES) == {"blend_fwd", "blend_bwd", "segsum", "preprocess_fwd",
+                                    "preprocess_bwd"}
     assert set(cameras.FEATURE_LOADS) == {"native", "numpy"}
     assert dict(_build.LAUNCHES) == {k[len("launches."):]: v for k, v in COUNTERS.items()
                                      if k.startswith("launches.")}
@@ -312,7 +313,8 @@ def test_loop_iterations_in_a_trace_window(tmp_path):
     counters = result["trace"]["counters"]
     assert counters["step_reruns"] == len(steps) - 3 > 0
     assert counters == s.counts
-    assert result["trace"]["launches"] == {"blend_fwd": 0, "blend_bwd": 0, "segsum": 0}
+    assert result["trace"]["launches"] == {"blend_fwd": 0, "blend_bwd": 0, "segsum": 0,
+                                           "preprocess_fwd": 0, "preprocess_bwd": 0}
     kids = set(names(children(s, roots[0])))
     assert {"train_step", "sync.step.dropped", "sync.step.rect_dropped", "sync.step.loss",
             "sync.camera"} <= kids
