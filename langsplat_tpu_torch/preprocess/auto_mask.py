@@ -4,15 +4,26 @@ fork's generator: the best-IoU head plus the three granularity heads).
 
 The predictor is injected: `predictor(crop [h, w, 3] uint8, points [P, 2] xy pixels) ->
 (masks [P, 3, h, w] bool, iou_preds [P, 3], logits [P, 3, h, w])`, as tensors on the
-generator's device (numpy arrays are uploaded). Per batch of points, the stability
-score, the IoU and stability filters, the empty-mask test, the bounding boxes, the
-uncrop and the near-crop-edge test run as tensor operations over the whole batch on
-that device; the surviving masks go to the host once for `remove_small_regions`
-(scipy's labelling, no OpenCV) and come back once. Records come out in the JAX
-package's order (points, then heads; the best head also goes to `default`, after its
-own head), per-head box NMS per crop, then a cross-crop NMS that prefers smaller crops,
-with every kept list re-sorted by index. Each record's `segmentation` is an [H, W] bool
-tensor on the device.
+generator's device (numpy arrays are uploaded). A predictor that also has
+`set_image(crop)`, `decode(points) -> (low-res logits, iou_preds)` and
+`upscale(low-res logits) -> logits` (`backends.SamPredictor`) encodes each crop once,
+as upstream SAM's generator does, and decodes its batches against that embedding.
+
+Per batch of points, the stability score, the IoU and stability filters and the
+empty-mask test run as tensor operations over the whole batch on that device; the
+surviving masks go to the host once for `remove_small_regions` (scipy's labelling, no
+OpenCV), the bounding boxes and the near-crop-edge test, and the kept ones come back
+once. Records come out in the JAX package's order (points, then heads; the best head
+also goes to `default`, after its own head), per-head box NMS per crop, then a
+cross-crop NMS that prefers smaller crops, with every kept list re-sorted by index.
+Each record's `segmentation` is an [H, W] bool tensor on the device.
+
+Tracing (`utils/tracing.py`): the root span `generate` a call, holding `sam_encoder`
+a crop, `sam_decoder` a batch (the prompt encoder and mask decoder), `sam_postprocess`
+a batch (the logits to the crop's size, stability and the filters, on the device),
+`mask_records` a batch (the host part) and `mask_nms` a crop and once across crops;
+every host read goes through a counted sync. The counter `sam.masks_kept` adds the
+masks a call returns.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import torch
 from scipy import ndimage
 
 from langsplat_tpu_torch.device import resolve_device
+from langsplat_tpu_torch.utils import tracing
 
 EIGHT_CONNECTED = np.ones((3, 3), bool)
 
@@ -215,6 +227,11 @@ class AutoMaskGenerator:
         self.config = config or AutoMaskConfig()
         self.device = resolve_device(device)
 
+    @property
+    def encodes_once(self) -> bool:
+        return all(hasattr(self.predictor, m) for m in ("set_image", "decode", "upscale"))
+
+    @tracing.traced("generate")
     def generate(self, image: np.ndarray):
         cfg = self.config
         h, w = image.shape[:2]
@@ -228,16 +245,19 @@ class AutoMaskGenerator:
                 per_head[i].extend(crop_heads[i])
 
         out = []
-        for recs in per_head:
-            if recs and len(crop_boxes) > 1:
-                # cross-crop dedup preferring masks found in smaller crops
-                boxes = torch.as_tensor(np.stack([r["bbox"] for r in recs]))
-                areas = np.array([(r["crop_box"][2] - r["crop_box"][0])
-                                  * (r["crop_box"][3] - r["crop_box"][1]) for r in recs],
-                                 np.float64)
-                keep = box_nms(boxes, torch.as_tensor(1.0 / areas), cfg.crop_nms_thresh)
-                recs = [recs[i] for i in sorted(keep.tolist())]
-            out.append(recs)
+        with tracing.span("mask_nms"):
+            for recs in per_head:
+                if recs and len(crop_boxes) > 1:
+                    # cross-crop dedup preferring masks found in smaller crops
+                    boxes = torch.as_tensor(np.stack([r["bbox"] for r in recs]))
+                    areas = np.array([(r["crop_box"][2] - r["crop_box"][0])
+                                      * (r["crop_box"][3] - r["crop_box"][1])
+                                      for r in recs], np.float64)
+                    keep = box_nms(boxes, torch.as_tensor(1.0 / areas),
+                                   cfg.crop_nms_thresh)
+                    recs = [recs[i] for i in sorted(keep.tolist())]
+                out.append(recs)
+        tracing.COUNTERS["sam.masks_kept"] += len({id(r) for recs in out for r in recs})
         return tuple(out)
 
     def _process_crop(self, image: np.ndarray, crop_box, layer_idx: int,
@@ -251,6 +271,9 @@ class AutoMaskGenerator:
         n_pts = max(cfg.points_per_side
                     // (cfg.crop_n_points_downscale_factor ** layer_idx), 1)
         grid = build_point_grid(n_pts) * np.array([cw, ch])
+        if self.encodes_once:
+            with tracing.span("sam_encoder"):
+                self.predictor.set_image(crop)
 
         per_head: list[list[dict]] = [[], [], [], []]
         for start in range(0, len(grid), cfg.points_per_batch):
@@ -260,20 +283,21 @@ class AutoMaskGenerator:
                     per_head[lst].append(rec)
 
         out = []
-        for recs in per_head:
-            if recs:
-                boxes = torch.as_tensor(np.stack([r["bbox"] for r in recs]))
-                scores = torch.tensor([r["predicted_iou"] for r in recs],
-                                      dtype=torch.float64)
-                keep = box_nms(boxes, scores, cfg.box_nms_thresh)
-                recs = [recs[i] for i in sorted(keep.tolist())]
-            out.append(recs)
-        # one tensor for the kept masks, so the batches' tensors are freed
-        kept = list({id(r): r for recs in out for r in recs}.values())
-        if kept:
-            segs = torch.stack([r["segmentation"] for r in kept])
-            for r, seg in zip(kept, segs):
-                r["segmentation"] = seg
+        with tracing.span("mask_nms"):
+            for recs in per_head:
+                if recs:
+                    boxes = torch.as_tensor(np.stack([r["bbox"] for r in recs]))
+                    scores = torch.tensor([r["predicted_iou"] for r in recs],
+                                          dtype=torch.float64)
+                    keep = box_nms(boxes, scores, cfg.box_nms_thresh)
+                    recs = [recs[i] for i in sorted(keep.tolist())]
+                out.append(recs)
+            # one tensor for the kept masks, so the batches' tensors are freed
+            kept = list({id(r): r for recs in out for r in recs}.values())
+            if kept:
+                segs = torch.stack([r["segmentation"] for r in kept])
+                for r, seg in zip(kept, segs):
+                    r["segmentation"] = seg
         return out
 
     def _filter_batch(self, masks, iou_preds, logits):
@@ -291,54 +315,74 @@ class AutoMaskGenerator:
                                cfg.stability_score_offset).reshape(iou_preds.shape)
         keep = (~(iou_preds < cfg.pred_iou_thresh)
                 & ~(stab < cfg.stability_score_thresh) & masks.flatten(2).any(2))
-        p_idx, h_idx = keep.nonzero(as_tuple=True)         # row-major: points, heads
+        with tracing.synced("mask.filter"):
+            p_idx, h_idx = keep.nonzero(as_tuple=True)     # row-major: points, heads
         return (p_idx, h_idx, masks[p_idx, h_idx], iou_preds[p_idx, h_idx],
                 stab[p_idx, h_idx], iou_preds.argmax(dim=1))
 
-    def _remove_small_regions(self, segs: torch.Tensor) -> torch.Tensor:
-        """`remove_small_regions` of every mask of [K, h, w] (none empty), on the host,
-        in place on one copy there, with the boxes found on the device: one transfer
-        there and one back."""
-        if self.config.min_mask_region_area <= 0 or len(segs) == 0:
-            return segs
-        boxes = mask_to_bbox(segs).long().cpu().numpy()
-        host = segs.cpu().numpy()
-        for m, (x, y, w, h) in zip(host, boxes):
-            _remove_small_regions_in_place(m, self.config.min_mask_region_area,
-                                           (y, y + h, x, x + w))
-        return torch.from_numpy(host).to(segs.device)
+    def _remove_small_regions(self, segs: np.ndarray) -> np.ndarray:
+        """`remove_small_regions` of every mask of [K, h, w] bool (none empty) on the
+        host, in place."""
+        if self.config.min_mask_region_area > 0:
+            for m in segs:
+                _remove_small_regions_in_place(m, self.config.min_mask_region_area, _bbox(m))
+        return segs
 
     def _batch_records(self, crop: np.ndarray, pts: np.ndarray, crop_box, orig_size):
         """[(head lists, record)] of one predictor call, in (point, head) order."""
-        dev = self.device
         h, w = orig_size
         x0, y0, x1, y1 = crop_box
-        p_idx, h_idx, segs, ious, stabs, best_head = self._filter_batch(
-            *self.predictor(crop, pts))
-        segs = self._remove_small_regions(segs)
-        bbox = mask_to_bbox(segs)
-        bbox = bbox + torch.tensor([x0, y0, 0, 0], dtype=torch.float64, device=dev)
-        ok = segs.flatten(1).any(1)
-        if (x0, y0, x1, y1) != (0, 0, w, h):
-            ok &= ~is_box_near_crop_edge(bbox, crop_box, orig_size)
-            full = torch.zeros((int(ok.sum()), h, w), dtype=torch.bool, device=dev)
-            full[:, y0:y1, x0:x1] = segs[ok]
+        if self.encodes_once:
+            with tracing.span("sam_decoder"):
+                low_res, iou_preds = self.predictor.decode(pts)
+            with tracing.span("sam_postprocess"):
+                logits = self.predictor.upscale(low_res)
+                filtered = self._filter_batch(logits > self.config.mask_threshold,
+                                              iou_preds, logits)
         else:
-            full = segs[ok]
-        ok = ok.cpu().numpy()
-        best = best_head.cpu().numpy()
-        bbox = bbox.cpu().numpy()[ok]
-        ious, stabs = ious[ok].tolist(), stabs[ok].tolist()
-        out = []
-        for k, (p, head) in enumerate(zip(p_idx.cpu().numpy()[ok].tolist(),
-                                          h_idx.cpu().numpy()[ok].tolist())):
-            rec = {
-                "segmentation": full[k],
-                "bbox": bbox[k],
-                "predicted_iou": float(ious[k]),
-                "stability_score": float(stabs[k]),
-                "point_coords": [[pts[p][0] + x0, pts[p][1] + y0]],
-                "crop_box": list(crop_box),
-            }
-            out.append(([head + 1, 0] if head == best[p] else [head + 1], rec))
+            masks, iou_preds, logits = self.predictor(crop, pts)
+            with tracing.span("sam_postprocess"):
+                filtered = self._filter_batch(masks, iou_preds, logits)
+        del logits
+        p_idx, h_idx, segs, ious, stabs, best_head = filtered
+        if len(p_idx) == 0:
+            return []
+        with tracing.span("mask_records"):
+            with tracing.synced("mask.records", 2):
+                scalars = torch.cat([p_idx.double(), h_idx.double(), ious.double(), stabs,
+                                     best_head.double()]).cpu().numpy()
+                segs = segs.cpu().numpy()
+            k = len(segs)
+            p_idx, h_idx = scalars[:k].astype(np.int64), scalars[k:2 * k].astype(np.int64)
+            ious, stabs, best = scalars[2 * k:3 * k], scalars[3 * k:4 * k], scalars[4 * k:]
+            segs = self._remove_small_regions(segs)
+            bbox = mask_to_bbox(torch.from_numpy(segs))
+            bbox = bbox + torch.tensor([x0, y0, 0, 0], dtype=torch.float64)
+            ok = torch.from_numpy(segs).flatten(1).any(1)
+            cropped = (x0, y0, x1, y1) != (0, 0, w, h)
+            if cropped:
+                ok &= ~is_box_near_crop_edge(bbox, crop_box, orig_size)
+            ok = ok.numpy()
+            if not ok.any():
+                return []
+            kept = tracing.upload("mask.records.segs", segs[ok], device=self.device)
+            if cropped:
+                full = torch.zeros((len(kept), h, w), dtype=torch.bool, device=self.device)
+                full[:, y0:y1, x0:x1] = kept
+            else:
+                full = kept
+            bbox = bbox.numpy()[ok]
+            out = []
+            for k, (p, head, iou, stab) in enumerate(zip(
+                    p_idx[ok].tolist(), h_idx[ok].tolist(), ious[ok].tolist(),
+                    stabs[ok].tolist())):
+                rec = {
+                    "segmentation": full[k],
+                    "bbox": bbox[k],
+                    "predicted_iou": float(iou),
+                    "stability_score": float(stab),
+                    "point_coords": [[pts[p][0] + x0, pts[p][1] + y0]],
+                    "crop_box": list(crop_box),
+                }
+                out.append(([head + 1, 0] if head == best[p] else [head + 1], rec))
         return out

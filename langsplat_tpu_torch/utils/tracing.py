@@ -10,6 +10,10 @@ incremented where the work happens.
 - `step_reruns`: training steps the loop discarded and ran again at grown caps.
 - `launches.<kernel>`: the CUDA kernels' launches (`ops/_build.LAUNCHES` is a view).
 - `feature_loads.<path>`: language-feature loads by path (`data/cameras.FEATURE_LOADS`).
+- `sam.encoder_passes`, `sam.decoder_batches`, `sam.prompts`: SAM's image-encoder
+  passes, mask-decoder calls and the point prompts they decode
+  (`preprocess/backends.py SamPredictor`); `sam.masks_kept`: the masks
+  `preprocess/auto_mask.py AutoMaskGenerator.generate` returns.
 
 **Spans** are on while a `torch.profiler` records (`torch.autograd._profiler_enabled()`),
 and only then: the operator's `--profile_dir` window (`train/loop.py TraceWindow`) or a
@@ -51,7 +55,9 @@ COUNTERS: dict[str, int] = {
     "host_syncs": 0, "render_calls": 0, "render_attempts": 0, "step_reruns": 0,
     "launches.blend_fwd": 0, "launches.blend_bwd": 0, "launches.segsum": 0,
     "launches.preprocess_fwd": 0, "launches.preprocess_bwd": 0,
-    "feature_loads.native": 0, "feature_loads.numpy": 0}
+    "feature_loads.native": 0, "feature_loads.numpy": 0,
+    "sam.encoder_passes": 0, "sam.decoder_batches": 0, "sam.prompts": 0,
+    "sam.masks_kept": 0}
 
 
 class CounterView(MutableMapping):

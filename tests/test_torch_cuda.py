@@ -1098,5 +1098,80 @@ def test_every_sync_on_the_card_is_counted(cuda_device, case):
         assert tries >= (2 if case == "render_full_retries" else 1)
         assert 4 + 7 * tries <= counted <= 4 + 8 * tries
 
+
+def tiny_sam(device, sharp: bool):
+    """The port's SAM at a small size that keeps every kind of block (an 8x8 grid,
+    windows of 3, global blocks 1 and 3), seeded weights; `sharp` biases the IoU head up
+    and scales the mask logits so that masks pass the generator's filters."""
+    from langsplat_tpu_torch.models import sam
+    cfg = sam.SamConfig(image_size=128, patch_size=16, encoder_width=64, encoder_depth=4,
+                        encoder_heads=4, encoder_mlp_dim=256, window_size=3,
+                        global_attn_indexes=(1, 3), prompt_width=32, decoder_heads=4,
+                        decoder_mlp_dim=64, iou_head_hidden_dim=32)
+    # drawn on the CPU: a card's generator draws other numbers from the same seed
+    model = sam.build_sam(cfg, seed=2**31 + 101).to(device)
+    if sharp:
+        with torch.no_grad():
+            model.mask_decoder.iou_prediction_head.layers[-1].bias.fill_(2.0)
+            for mlp in model.mask_decoder.output_hypernetworks_mlps:
+                mlp.layers[-1].weight.mul_(200.0)
+    return model
+
+
+def sam_view(seed=5, h=96, w=128) -> np.ndarray:
+    low = torch.rand((1, 3, h // 16, w // 16), generator=torch.Generator().manual_seed(seed))
+    img = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear")
+    return (img[0].permute(1, 2, 0) * 255).round().to(torch.uint8).numpy()
+
+
+@pytest.mark.cuda
+def test_sam_on_the_card_matches_the_cpu_in_float32(cuda_device):
+    """The embedding, low-res logits and IoU predictions of one crop on the card and on
+    the CPU agree to float32 rounding (2e-5 of the largest magnitude): the products run
+    without TF32, which would move them by ~1e-3."""
+    from langsplat_tpu_torch.preprocess.backends import SamPredictor
+    image, points = sam_view(), np.array([[10.5, 20.25], [100.0, 70.0], [127.0, 95.0]])
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        pred = SamPredictor(tiny_sam(dev, sharp=False), device=dev)
+        pred.set_image(image)
+        low, iou = pred.decode(points)
+        outs.append([t.cpu() for t in (pred.embedding, low, iou)])
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max() / b.abs().max()) < 2e-5
+
+
+@pytest.mark.cuda
+def test_every_sync_of_the_mask_generator_is_counted(cuda_device):
+    """Every synchronizing operation that torch.cuda.set_sync_debug_mode("warn") sees
+    in one `AutoMaskGenerator.generate` through `SamPredictor` is one increment of
+    `host_syncs`: 2 a crop (the crop's and the normalisation's uploads), 2 a batch (the
+    points' upload, the filters' nonzero) and 3 more a batch that keeps masks."""
+    from langsplat_tpu_torch.preprocess.auto_mask import AutoMaskConfig, AutoMaskGenerator
+    from langsplat_tpu_torch.preprocess.backends import SamPredictor
+    from langsplat_tpu_torch.utils.tracing import COUNTERS
+    gen = AutoMaskGenerator(SamPredictor(tiny_sam(cuda_device, sharp=True), cuda_device),
+                            AutoMaskConfig(points_per_side=4, points_per_batch=8,
+                                           crop_n_layers=1), device=cuda_device)
+    image = sam_view()
+    gen.generate(image)
+    before = dict(COUNTERS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            gen.generate(image)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    moved = {k: COUNTERS[k] - before[k] for k in COUNTERS}
+    print(f"sam: {len(sites)} syncs warned of, {moved['host_syncs']} counted, "
+          f"{moved['sam.masks_kept']} masks kept; sites {sorted(set(sites))}")
+    assert moved["sam.encoder_passes"] == 5 and moved["sam.decoder_batches"] == 10
+    assert moved["sam.masks_kept"] > 0
+    assert len(sites) == moved["host_syncs"] >= 5 * 2 + 10 * 2, sites
+
 if __name__ == "__main__":
     torch.save(globals()[sys.argv[1]](torch.device("cuda")), sys.argv[2])
