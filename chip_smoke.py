@@ -9,14 +9,17 @@ times both paths.
 
 Phases (any failure ends the run with a non-zero exit):
   1. the device: name, count, and `nvidia-smi` name and power limit;
-  2. the kernels (csrc/blend_fwd.cu, blend_bwd.cu, segsum.cu, preprocess.cu) are built
-     with nvcc, one process per source, all started together, then each is compared with
-     its plain version at small odd sizes: the blend forward and backward with F = 0 and
-     3 and both grad modes, the segment sum with segments longer than 32 (the forward
-     kernel, wherever it is compared, also twice with itself, bit for bit), projection
-     and SH at SH degrees 0-4 and with precomputed covariances and colours (radii, tile
-     rects and visible bit-equal, floats within PREP_ULPS, gradients against autograd's
-     of the plain version);
+  2. the kernels (csrc/blend_fwd.cu, blend_bwd.cu, segsum.cu, preprocess.cu, ssim.cu)
+     are built with nvcc, one process per source, all started together, then each is
+     compared with its plain version at small odd sizes: the blend forward and backward
+     with F = 0 and 3 and both grad modes, the segment sum with segments longer than 32
+     (the forward kernel, wherever it is compared, also twice with itself, bit for bit),
+     projection and SH at SH degrees 0-4 and with precomputed covariances and colours
+     (radii, tile rects and visible bit-equal, floats within PREP_ULPS, gradients against
+     autograd's of the plain version); the SSIM pair at 1024x768x3 (the map bit-equal,
+     the mean within 1e-6 relative, the gradient within SSIM_TOL of autograd's, both
+     twice bit for bit), with its times forward and backward, the plain version's and
+     its bytes bounds;
   3. the render path: a synthetic COLMAP scene (3 cameras at 1024x768) and a trained
      model of 1M Gaussians (sh_degree 3, 3 language-feature channels, made from
      --seed) written as PLY + npz checkpoint, rendered by
@@ -192,9 +195,11 @@ TRAIN_STEPS = 20
 # of ~50 px radius, the tile cap grown past the culled range): past the default cap of
 # 6 instances per Gaussian of capacity, at which the training loop refuses to truncate.
 BUDGET_FLAGS = ["--budget_factor", "24"]
-SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu", "preprocess.cu"]
+SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu", "preprocess.cu", "ssim.cu"]
 PREP_ULPS = 4         # projection and SH kernel's float outputs vs plain, in float32 ulps
 PREP_TOL = 1e-5       # its gradients vs autograd of plain, relative to each leaf's norm
+SSIM_MEAN_TOL = 1e-6  # SSIM kernels' mean vs plain, relative (summation order)
+SSIM_TOL = 1e-5       # their gradient vs autograd of plain, relative to its largest value
 GUARD_BYTES = 1 << 16       # guard words on each side of a guarded kernel output
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, FP32 outside the tensor cores
@@ -712,6 +717,60 @@ def preprocess_full_width(field, cam, device) -> dict:
                            / HBM_BYTES_PER_S * 1e3)
     out["bytes_per_gaussian"] = [read + written, grads_in + read - 1 + 12 + 12 + 16 + 12 * k]
     return out
+
+
+def ssim_full_width(device) -> dict:
+    """Phase 2's SSIM pair at WIDTH x HEIGHT x 3 (a uniform image and a noisy copy):
+    the kernels against the plain version on the same tensors (the map bit-equal, the
+    mean's and img1's gradient's gaps, two runs bit for bit), their device times forward
+    (with the derivative maps) and backward, the plain version's (its backward as
+    forward and autograd backward less its forward) and their bytes bounds (each input
+    read once, each output written once)."""
+    rng = np.random.default_rng(17)
+    a = rng.uniform(size=(3, HEIGHT, WIDTH))
+    b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1)
+    img1, img2 = (torch.tensor(v, dtype=torch.float32, device=device) for v in (a, b))
+    x = img1.clone().requires_grad_(True)
+
+    def both(fn):
+        value = fn(x, img2)
+        return value.detach(), torch.autograd.grad(value, [x])[0]
+
+    got, second, want = both(losses.ssim), both(losses.ssim), both(losses.ssim_plain)
+    out = dict(map_equal=torch.equal(losses.ssim_map_cuda(img1, img2),
+                                     losses.ssim_map_plain(img1, img2)),
+               repeat_equal=all(torch.equal(p, q) for p, q in zip(got, second)),
+               mean_rel=abs(float(got[0]) - float(want[0])) / abs(float(want[0])),
+               grad_rel=float((got[1] - want[1]).abs().max())
+               / float(want[1].abs().max()))
+    _, dmaps, _ = losses.ssim_forward_cuda(img1, img2, 11, 1.5, save=True)
+    g = torch.ones((), device=device)
+
+    def forward():
+        return losses.ssim_forward_cuda(img1, img2, 11, 1.5, save=True)
+
+    def backward():
+        return losses.ssim_backward_cuda(img1, img2, dmaps, 11, 1.5, g)
+
+    # the kernels' device time (a wrapper call's ~60 us of host time would set the
+    # CUDA events' rate), and the calls' rate through the wrappers
+    out["ms"] = profile_render(forward, reps=50, host_events=False)["device_ms_per_call"]
+    out["bwd_ms"] = profile_render(backward, reps=50, host_events=False)["device_ms_per_call"]
+    out["call_ms"] = [cuda_ms(forward, reps=50), cuda_ms(backward, reps=50)]
+    out["plain_ms"] = cuda_ms(lambda: losses.ssim_plain(x, img2), reps=5)
+    out["bwd_plain_ms"] = cuda_ms(lambda: both(losses.ssim_plain), reps=5) - out["plain_ms"]
+    n = img1.numel()
+    out["bytes_per_value"] = [8 + 12, 8 + 12 + 4]
+    out["bound_ms"] = n * 20 / HBM_BYTES_PER_S * 1e3
+    out["bwd_bound_ms"] = n * 24 / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def check_ssim(res: dict) -> None:
+    if not (res["map_equal"] and res["repeat_equal"] and res["mean_rel"] <= SSIM_MEAN_TOL
+            and res["grad_rel"] <= SSIM_TOL):
+        raise RuntimeError(f"phase 2: the SSIM kernels disagree with the plain version: "
+                           f"{res}")
 
 
 # ---------------------------------------------------------------------------
@@ -1808,7 +1867,10 @@ TRACE_RUNS = {"A": dict(steps=10, first=6, window=3, traced=(6, 9)),
 # the hand-written kernels' symbols in a trace
 KERNEL_SYMBOLS = {"blend_fwd": "blend_fwd_kernel", "blend_bwd": "blend_bwd_kernel",
                   "segsum": "segsum_kernel", "preprocess_fwd": "preprocess_fwd_kernel",
-                  "preprocess_bwd": "preprocess_bwd_kernel"}
+                  "preprocess_bwd": "preprocess_bwd_kernel",
+                  "ssim_fwd": "ssim_fwd_kernel", "ssim_bwd": "ssim_bwd_kernel"}
+# the kernels of phase A's step alone: phase B has no geometric gradient and no SSIM
+PHASE_A_ONLY = ("preprocess_bwd", "ssim_fwd", "ssim_bwd")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 GUI_FRAMES = 3              # frames the viewer holds iteration 1 for, then it releases
 LOADER_REPS = 10
@@ -1865,7 +1927,7 @@ def trace_phase(tmp: str, train_scene: str, run_prefix: str) -> dict:
     """11a: the train CLI with a trace window, phase A from the SfM points and phase B
     from phase 5's phase-A checkpoint; the trace must hold each kernel's launches in the
     counts the launch counters moved by inside the window (every kernel's in phase A,
-    all but the projection and SH backward's in phase B). Each run is a new process:
+    all but PHASE_A_ONLY's in phase B). Each run is a new process:
     in this one, hundreds of seconds old by now, the profiler's device timestamps ran
     up to ~8 ms ahead of the host's on the H100, and a window dropped the kernels of its
     first milliseconds."""
@@ -1907,8 +1969,7 @@ def trace_phase(tmp: str, train_scene: str, run_prefix: str) -> dict:
                                f"{run['traced']}, got {trace}")
         device = read_trace(trace)
         counted = trace["launches"]
-        # phase B's geometry is frozen: projection and SH have no backward there
-        needed = {k: k != "preprocess_bwd" or name == "A" for k in counted}
+        needed = {k: k not in PHASE_A_ONLY or name == "A" for k in counted}
         if (device["launches_in_trace"] != counted
                 or any((counted[k] >= 1) != needed[k] for k in counted)):
             raise RuntimeError(f"11a ({name}): kernel launches in the trace "
@@ -2173,8 +2234,7 @@ def tiled_phase(model_dir: str, scene_dir: str, device) -> dict:
         p, i, opac, f, bg_, image_height=h, image_width=w, tile_size=TILE), "cpu")
     bit_equal = all(torch.equal(a, b) for a, b in zip(first, second))
     grad_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(first, plain))
-    if not bit_equal or bwd_launches != {"blend_fwd": 0, "blend_bwd": 0, "segsum": 2,
-                                         "preprocess_fwd": 0, "preprocess_bwd": 0}:
+    if not bit_equal or bwd_launches != dict(dict.fromkeys(_build.LAUNCHES, 0), segsum=2):
         raise RuntimeError(f"11d: tiled backward bit-equal {bit_equal}, launches "
                            f"{bwd_launches}")
     if not grad_err <= TILED_GRAD_TOL:
@@ -2681,6 +2741,9 @@ def main() -> int:
         raise RuntimeError(f"a kernel disagrees with its plain version: {small}")
     prep_small = preprocess_comparisons(device)
     check_preprocess("phase 2", prep_small)
+    ssim_res = ssim_full_width(device)
+    log("phase 2 (SSIM, 1024x768x3): " + json.dumps(ssim_res))
+    check_ssim(ssim_res)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 3. the render path: the render CLI at full width
@@ -2977,6 +3040,21 @@ def main() -> int:
              bound_ms=prep_full["bwd_bound_ms"], bound_by="bytes", library_ms=None,
              tol=PREP_TOL, tol_of="leaf-norm-relative",
              bytes_per_gaussian=prep_full["bytes_per_gaussian"][1]),
+        dict(name="ssim_fwd", route="cuda", source="langsplat_tpu_torch/csrc/ssim.cu",
+             replaces="none: XLA convs in langsplat_tpu/core/losses.py",
+             launches=launches["ssim_fwd"], launches_by_path=by_path["ssim_fwd"],
+             map_equal=ssim_res["map_equal"], max_rel_err=ssim_res["mean_rel"],
+             ms=ssim_res["ms"], plain_ms=ssim_res["plain_ms"],
+             bound_ms=ssim_res["bound_ms"], bound_by="bytes", library_ms=None,
+             tol=SSIM_MEAN_TOL, tol_of="mean-relative; the map exact",
+             bytes_per_value=ssim_res["bytes_per_value"][0]),
+        dict(name="ssim_bwd", route="cuda", source="langsplat_tpu_torch/csrc/ssim.cu",
+             replaces="none: autograd of the plain version",
+             launches=launches["ssim_bwd"], launches_by_path=by_path["ssim_bwd"],
+             max_rel_err=ssim_res["grad_rel"], ms=ssim_res["bwd_ms"],
+             plain_ms=ssim_res["bwd_plain_ms"], bound_ms=ssim_res["bwd_bound_ms"],
+             bound_by="bytes", library_ms=None, tol=SSIM_TOL, tol_of="max-relative",
+             bytes_per_value=ssim_res["bytes_per_value"][1]),
     ]
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))

@@ -55,6 +55,7 @@ COUNTERS: dict[str, int] = {
     "host_syncs": 0, "render_calls": 0, "render_attempts": 0, "step_reruns": 0,
     "launches.blend_fwd": 0, "launches.blend_bwd": 0, "launches.segsum": 0,
     "launches.preprocess_fwd": 0, "launches.preprocess_bwd": 0,
+    "launches.ssim_fwd": 0, "launches.ssim_bwd": 0,
     "feature_loads.native": 0, "feature_loads.numpy": 0,
     "sam.encoder_passes": 0, "sam.decoder_batches": 0, "sam.prompts": 0,
     "sam.masks_kept": 0}

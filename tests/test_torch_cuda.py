@@ -1,7 +1,7 @@
 """PyTorch port on the card: the CUDA kernels (blend forward, blend backward, segment
-sum, projection and SH forward and backward) against their plain PyTorch versions, and
-the whole render and one training step of each phase on the card against the same on
-the CPU.
+sum, projection and SH forward and backward, SSIM forward and backward) against their
+plain PyTorch versions, and the whole render and one training step of each phase on the
+card against the same on the CPU.
 
 Every test here needs a CUDA device; each one decides that in the `cuda_device` fixture
 and skips without one. This file imports only torch, numpy and the port, so it runs on
@@ -710,6 +710,129 @@ def test_preprocess_kernel_refuses_what_it_does_not_take(cuda_device):
         call_preprocess(projection.preprocess, grad_cam)
     with pytest.raises(ValueError, match="coefficients"):
         call_preprocess(projection.preprocess, dict(kw, sh_degree=4))
+
+
+# ---------------------------------------------------------------------------
+# SSIM: the kernels of csrc/ssim.cu against the plain version
+# ---------------------------------------------------------------------------
+
+#: the training views' sizes, odd sizes off the 32-pixel tile, a plane narrower and
+#: shorter than the 11-tap window, a batch, and a row band multiplied by its row mask as
+#: `parallel/dp_spatial.py band_loss` sends it (rows past the image zero in both)
+SSIM_CASES = {"960x720": (3, 720, 960), "1024x768": (3, 768, 1024),
+              "odd_77x101": (3, 77, 101), "narrow_7x5": (3, 7, 5),
+              "batched": (2, 3, 45, 70), "band": (3, 96, 160)}
+
+
+def ssim_pair(name, device, seed=0):
+    shape = SSIM_CASES[name]
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(size=shape)
+    b = np.clip(a + 0.1 * rng.normal(size=shape), 0, 1)
+    img1, img2 = (torch.tensor(v, dtype=torch.float32, device=device) for v in (a, b))
+    if name == "band":
+        row_ok = (torch.arange(shape[1], device=device) < 70).float()[:, None]
+        img1, img2 = img1 * row_ok, img2 * row_ok
+    return img1, img2
+
+
+def ssim_and_grad(fn, img1, img2):
+    x = img1.clone().requires_grad_(True)
+    value = fn(x, img2)
+    (grad,) = torch.autograd.grad(value, [x])
+    return value.detach(), grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SSIM_CASES))
+def test_ssim_kernels_match_plain(cuda_device, name):
+    """The kernels against the plain version on the same CUDA tensors: the SSIM map
+    bit-equal, the mean within 1e-6 relative (summation order), img1's gradient within
+    1e-5 of its largest magnitude (accumulation order); one launch of each a call."""
+    from langsplat_tpu_torch.core import losses
+    img1, img2 = ssim_pair(name, cuda_device)
+    got_map = losses.ssim_map_cuda(img1, img2)
+    want_map = losses.ssim_map_plain(img1, img2)
+    assert torch.equal(got_map, want_map), int((got_map != want_map).sum())
+    launches = dict(_build.LAUNCHES)
+    got, got_grad = ssim_and_grad(losses.ssim, img1, img2)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssim_fwd"] == launches["ssim_fwd"] + 1
+    assert _build.LAUNCHES["ssim_bwd"] == launches["ssim_bwd"] + 1
+    want, want_grad = ssim_and_grad(losses.ssim_plain, img1, img2)
+    assert abs(float(got) - float(want)) <= 1e-6 * abs(float(want))
+    scale = float(want_grad.abs().max())
+    assert scale > 0 and bool(torch.isfinite(got_grad).all())
+    assert float((got_grad - want_grad).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_ssim_kernels_are_deterministic(cuda_device):
+    from langsplat_tpu_torch.core import losses
+    img1, img2 = ssim_pair("1024x768", cuda_device)
+    first = ssim_and_grad(losses.ssim, img1, img2)
+    second = ssim_and_grad(losses.ssim, img1, img2)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_ssim_kernels_refuse_what_they_do_not_take(cuda_device):
+    """float64, a CPU/CUDA mix either way, img2 requiring grad and an even window
+    raise; under no_grad nothing is saved and no backward launches; a non-contiguous
+    image is read through a contiguous copy, bit for bit."""
+    from langsplat_tpu_torch.core import losses
+    img1, img2 = ssim_pair("odd_77x101", cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        losses.ssim(img1.double(), img2.double())
+    with pytest.raises(ValueError, match="CUDA device"):
+        losses.ssim(img1.cpu(), img2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        losses.ssim(img1, img2.cpu())
+    with pytest.raises(ValueError, match="img2 requires grad"):
+        losses.ssim(img1, img2.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="odd window"):
+        losses.ssim(img1, img2, window_size=10)
+    launches = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        value = losses.ssim(img1.clone().requires_grad_(True), img2)
+    assert value.grad_fn is None
+    assert _build.LAUNCHES["ssim_fwd"] == launches["ssim_fwd"] + 1
+    wide = torch.cat([img1, img1], dim=-1)[..., 3:3 + img1.shape[-1]]
+    assert not wide.is_contiguous()
+    assert torch.equal(losses.ssim(wide, img2), losses.ssim(wide.contiguous(), img2))
+
+
+@pytest.mark.cuda
+def test_ssim_kernels_on_images_off_16_byte_alignment(cuda_device):
+    """Contiguous images one float past an aligned address (views into a larger buffer)
+    take the kernels' one-value-at-a-time loads and stores: the same mean and gradient,
+    bit for bit, as aligned copies, at a width whose rows are 16-byte multiples."""
+    from langsplat_tpu_torch.core import losses
+    img1, img2 = ssim_pair("band", cuda_device)
+    shifted = []
+    for img in (img1, img2):
+        buf = torch.zeros(img.numel() + 1, device=cuda_device)
+        buf[1:] = img.reshape(-1)
+        shifted.append(buf[1:].view(img.shape))
+    assert shifted[0].data_ptr() % 16 != 0 and shifted[0].is_contiguous()
+    got = ssim_and_grad(losses.ssim, *shifted)
+    want = ssim_and_grad(losses.ssim, img1, img2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rgb", "feature"])
+def test_ssim_kernels_run_once_a_phase_a_step(cuda_device, case):
+    """`launches.ssim_fwd` and `launches.ssim_bwd` move by one each in a phase-A
+    train_step_rgb, and not at all in a phase-B train_step_feature."""
+    call = sync_case(case, cuda_device)
+    call()                            # builds the kernels; first-use work
+    launches = dict(_build.LAUNCHES)
+    call()
+    torch.cuda.synchronize()
+    moved = {k: _build.LAUNCHES[k] - launches[k] for k in ("ssim_fwd", "ssim_bwd")}
+    want = 1 if case == "rgb" else 0
+    assert moved == {"ssim_fwd": want, "ssim_bwd": want}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """PyTorch port, losses and the k-NN scale initialisation against the JAX package:
 L1, L2, PSNR, separable SSIM (value and gradient), the phase-A RGB loss and the
-phase-B masked L1 to 1e-6; `mean_knn_sq_dist` to 1e-5 relative."""
+phase-B masked L1 to 1e-6; the SSIM backward kernel's formula (`csrc/ssim.cu`) against
+autograd and jax.grad; `mean_knn_sq_dist` to 1e-5 relative."""
 
 import numpy as np
 import jax
@@ -47,6 +48,48 @@ def test_ssim_of_identical_images_is_one():
     a, _ = images(3)
     np.testing.assert_allclose(float(tlosses.ssim(torch.tensor(a), torch.tensor(a))), 1.0,
                                atol=ATOL)
+
+
+def ssim_grad_by_formula(x, y, window_size=11, sigma=1.5):
+    """dSSIM/dx as the SSIM kernels compute it: the forward's three derivative maps
+    (dS/dmu1 with the sigma terms' chain folded in, dS/dE[x^2], dS/dE[xy]) blurred with
+    the window, its own adjoint, and combined at each pixel, over the element count."""
+    window = tlosses._gaussian_window(window_size, sigma)
+
+    def blur(t):
+        return tlosses._depthwise_blur(t, window)
+    c1, c2 = tlosses.C1, tlosses.C2
+    mu1, mu2 = blur(x), blur(y)
+    sigma1_sq = blur(x * x) - mu1 * mu1
+    sigma2_sq = blur(y * y) - mu2 * mu2
+    sigma12 = blur(x * y) - mu1 * mu2
+    a1, a2 = 2 * mu1 * mu2 + c1, 2 * sigma12 + c2
+    b1, b2 = mu1 * mu1 + mu2 * mu2 + c1, sigma1_sq + sigma2_sq + c2
+    den = b1 * b2
+    s = a1 * a2 / den
+    d_mu = 2 / den * (mu2 * (a2 - a1) - mu1 * s * (b2 - b1))
+    d_e11 = -s / b2
+    d_e12 = 2 * a1 / den
+    return (blur(d_mu) + 2 * x * blur(d_e11) + y * blur(d_e12)) / x.numel()
+
+
+@pytest.mark.parametrize("seed,shape", [(11, (3, 48, 64)), (12, (3, 37, 29)),
+                                        (13, (2, 3, 20, 33))])
+def test_ssim_backward_formula_matches_autograd_and_jax(seed, shape):
+    """The formula of the SSIM backward kernel, in plain torch: exact to float64
+    rounding against autograd of `ssim` in float64, and in float32 within 1e-5 of the
+    largest magnitude of autograd's and jax.grad's gradients."""
+    a, b = images(seed, shape)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        x = torch.tensor(a, dtype=dtype, requires_grad=True)
+        y = torch.tensor(b, dtype=dtype)
+        (want,) = torch.autograd.grad(tlosses.ssim(x, y), [x])
+        got = ssim_grad_by_formula(x.detach(), y)
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= tol * scale, dtype
+    ja = np.asarray(jax.grad(lambda v: jlosses.ssim(v, jnp.asarray(b)))(jnp.asarray(a)))
+    np.testing.assert_allclose(got.numpy(), ja, rtol=0, atol=1e-5 * np.abs(ja).max())
 
 
 def test_masked_l1_matches_jax():

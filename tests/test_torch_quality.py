@@ -291,7 +291,8 @@ def test_smoke_protocol_every_stage_on_the_cpu(smoke):
     assert set(rep["stage_seconds"]) >= set(quality_run.STAGES) - {"report"}
     for st in ("phaseA", "phaseB", "render"):
         assert set(rep["launches"][st]) == {"blend_fwd", "blend_bwd", "segsum",
-                                            "preprocess_fwd", "preprocess_bwd"}
+                                            "preprocess_fwd", "preprocess_bwd",
+                                            "ssim_fwd", "ssim_bwd"}
     assert set(rep["launches"]["phaseB_levels"]) == {"1", "2", "3"}
     assert rep["device"] == "cpu"
 
