@@ -30,10 +30,17 @@ import torch
 
 from langsplat_tpu_torch.ops import _build
 
-_SOURCE = "ssim.cu"
 #: the largest window radius the kernels' halo holds
 MAX_RADIUS = 5
 C1, C2 = 0.01 ** 2, 0.03 ** 2
+_PTR, _INT, _TAPS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
+#: the number of float64 tile partials the forward writes for (planes, H, W)
+_PARTIALS = _build.Kernel("ssim.cu", "ssim_partials", [_INT] * 3, ctypes.c_longlong,
+                          launch=False)
+_FORWARD = _build.Kernel("ssim.cu", "ssim_fwd", [_PTR] * 2 + [_INT] * 3
+                         + [_TAPS, _INT, ctypes.c_float, ctypes.c_float] + [_PTR] * 4)
+_BACKWARD = _build.Kernel("ssim.cu", "ssim_bwd",
+                          [_PTR] * 3 + [_INT] * 3 + [_TAPS, _INT, _PTR, _PTR])
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -119,14 +126,6 @@ def check_ssim_inputs(img1: torch.Tensor, img2: torch.Tensor, window_size: int) 
                          f"{2 * MAX_RADIUS + 1} taps, got {window_size}")
 
 
-def _kernel(name: str, argtypes: list, restype=ctypes.c_int):
-    fn = getattr(_build.load(_SOURCE), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return fn
-
-
 @functools.lru_cache(maxsize=8)
 def _taps(window_size: int, sigma: float):
     window = _gaussian_window(window_size, sigma)
@@ -147,25 +146,14 @@ def ssim_forward_cuda(img1, img2, window_size: int, sigma: float, *, save: bool,
     if not (img1.is_contiguous() and img2.is_contiguous()):
         raise ValueError("the SSIM kernels take contiguous images")
     planes, h, w = _planes(img1)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    count = _kernel("ssim_partials", [i32] * 3, ctypes.c_longlong)(planes, h, w)
+    count = _PARTIALS(planes, h, w)
     device, f32 = img1.device, torch.float32
     partials = torch.empty((count,), dtype=torch.float64, device=device)
     mean = torch.empty((), dtype=f32, device=device)
     dmaps = torch.empty((3, *img1.shape), dtype=f32, device=device) if save else None
     ssim_map = torch.empty_like(img1) if want_map else None
-    fn = _kernel("ssim_fwd", [ptr, ptr, i32, i32, i32, ctypes.POINTER(ctypes.c_float),
-                              i32, ctypes.c_float, ctypes.c_float, ptr, ptr, ptr, ptr,
-                              ptr])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(img1.data_ptr(), img2.data_ptr(), planes, h, w,
-                 _taps(window_size, sigma), window_size // 2, C1, C2, partials.data_ptr(),
-                 mean.data_ptr(), None if ssim_map is None else ssim_map.data_ptr(),
-                 None if dmaps is None else dmaps.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ssim_fwd kernel launch failed with CUDA error {err}")
-    _build.LAUNCHES["ssim_fwd"] += 1
+    _FORWARD(device, img1, img2, planes, h, w, _taps(window_size, sigma),
+             window_size // 2, C1, C2, partials, mean, ssim_map, dmaps)
     return mean, dmaps, ssim_map
 
 
@@ -179,17 +167,8 @@ def ssim_backward_cuda(img1, img2, dmaps, window_size: int, sigma: float,
     planes, h, w = _planes(img1)
     grad_out = grad_out.contiguous()
     grad1 = torch.empty_like(img1)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _kernel("ssim_bwd", [ptr, ptr, ptr, i32, i32, i32, ctypes.POINTER(ctypes.c_float),
-                              i32, ptr, ptr, ptr])
-    with torch.cuda.device(img1.device):
-        stream = torch.cuda.current_stream(img1.device).cuda_stream
-        err = fn(img1.data_ptr(), img2.data_ptr(), dmaps.data_ptr(), planes, h, w,
-                 _taps(window_size, sigma), window_size // 2, grad_out.data_ptr(),
-                 grad1.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ssim_bwd kernel launch failed with CUDA error {err}")
-    _build.LAUNCHES["ssim_bwd"] += 1
+    _BACKWARD(img1.device, img1, img2, dmaps, planes, h, w, _taps(window_size, sigma),
+              window_size // 2, grad_out, grad1)
     return grad1
 
 

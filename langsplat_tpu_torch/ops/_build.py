@@ -3,11 +3,12 @@ shared library with a plain C interface, loaded with ctypes.
 
 A library is built at first use into `langsplat_tpu_torch/_build/`, named by a hash of
 its sources and flags, so a changed source rebuilds and an unchanged one is reused.
-Nothing here runs at import time. `LAUNCHES` counts, per kernel, the launches made
-through the kernels' wrappers (a view of the counters `launches.<kernel>` of
-`utils/tracing.py`); a caller resets it to show which kernels a run went through.
-`guarded` places a kernel's output inside guard words, to show that the kernel writes
-nowhere else.
+Nothing here runs at import time. Every call of a kernel goes through one `Kernel`
+binding: it launches the entry point on a device's current stream, raises on a failed
+launch and counts it in `LAUNCHES`, per kernel (a view of the counters
+`launches.<kernel>` of `utils/tracing.py`); a caller resets it to show which kernels a
+run went through. `check` is the wrappers' one tensor check. `guarded` places a
+kernel's output inside guard words, to show that the kernel writes nowhere else.
 """
 
 from __future__ import annotations
@@ -98,6 +99,51 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([source])[0]))
             _libs[source] = lib
         return lib
+
+
+class Kernel:
+    """Entry point `name` of csrc/`source`, loaded and typed with `argtypes` at its first
+    call. With `launch`, `kernel(device, *args)` passes a tensor (or None) at each pointer
+    argument as its data pointer, launches on `device`'s current stream (the last C
+    argument), raises RuntimeError on a nonzero CUDA error code and counts
+    LAUNCHES[name]; else `kernel(*args)` returns the result."""
+
+    def __init__(self, source: str, name: str, argtypes: list, restype=ctypes.c_int,
+                 launch: bool = True):
+        self.source, self.name, self.launch, self.restype = source, name, launch, restype
+        self.argtypes = list(argtypes) + [ctypes.c_void_p] * launch
+        self._ptrs = [t is ctypes.c_void_p for t in argtypes]   # isinstance costs more
+        self._fn = None
+
+    def __call__(self, *args):
+        if self._fn is None:
+            fn = getattr(load(self.source), self.name)
+            fn.argtypes, fn.restype = self.argtypes, self.restype
+            self._fn = fn
+        if not self.launch:
+            return self._fn(*args)
+        device = args[0]
+        args = [a.data_ptr() if p and a is not None else a
+                for a, p in zip(args[1:], self._ptrs)]
+        with torch.cuda.device(device):
+            err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed with CUDA error {err}")
+        LAUNCHES[self.name] += 1
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device,
+          contiguous: bool = True) -> None:
+    """Raise ValueError unless `t` is on `device` with `dtype` and `shape` (and, with
+    `contiguous`, contiguous)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 #: the bit pattern of a guard word: a NaN whose payload no arithmetic produces

@@ -32,7 +32,6 @@ from langsplat_tpu_torch.core import sh as sh_lib
 from langsplat_tpu_torch.core import transforms
 from langsplat_tpu_torch.ops import _build
 
-_SOURCE = "preprocess.cu"
 #: most SH coefficients a row (degree 4) the kernels take
 MAX_COEFFS = 25
 
@@ -195,17 +194,6 @@ def preprocess_plain(
 # The kernels of csrc/preprocess.cu
 # ---------------------------------------------------------------------------
 
-def _check(name, t, dtype, shape, device, contiguous=True):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if contiguous and not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def check_kernel_inputs(means3d, scales, quats, shs, viewmatrix, projmatrix, campos, *,
                         sh_degree, tile_size, cov3d_precomp=None, alive=None) -> None:
     """Raise on inputs the kernels do not take: float32 contiguous tensors of the plain
@@ -216,12 +204,12 @@ def check_kernel_inputs(means3d, scales, quats, shs, viewmatrix, projmatrix, cam
     device = means3d.device
     n = means3d.shape[0]
     f32 = torch.float32
-    _check("means3d", means3d, f32, (n, 3), device)
+    _build.check("means3d", means3d, f32, (n, 3), device)
     if cov3d_precomp is not None:
-        _check("cov3d_precomp", cov3d_precomp, f32, (n, 6), device)
+        _build.check("cov3d_precomp", cov3d_precomp, f32, (n, 6), device)
     else:
-        _check("scales", scales, f32, (n, 3), device)
-        _check("quats", quats, f32, (n, 4), device)
+        _build.check("scales", scales, f32, (n, 3), device)
+        _build.check("quats", quats, f32, (n, 4), device)
     if shs is not None:
         if not 0 <= sh_degree <= 4:
             raise ValueError(f"SH degree must be in [0,4], got {sh_degree}")
@@ -231,15 +219,15 @@ def check_kernel_inputs(means3d, scales, quats, shs, viewmatrix, projmatrix, cam
         if not (sh_degree + 1) ** 2 <= k <= MAX_COEFFS:
             raise ValueError(f"shs holds {k} coefficients a row; the kernels take "
                              f"{(sh_degree + 1) ** 2} (degree {sh_degree}) to {MAX_COEFFS}")
-        _check("shs", shs, f32, (n, k, 3), device)
+        _build.check("shs", shs, f32, (n, k, 3), device)
     for name, t, shape in (("viewmatrix", viewmatrix, (4, 4)),
                            ("projmatrix", projmatrix, (4, 4)), ("campos", campos, (3,))):
-        _check(name, t, f32, shape, device, contiguous=False)   # read through strides
+        _build.check(name, t, f32, shape, device, contiguous=False)   # read through strides
         if t.requires_grad:
             raise ValueError(f"{name} requires grad; the kernels give no gradient of the "
                              f"camera")
     if alive is not None:
-        _check("alive", alive, torch.bool, (n,), device)
+        _build.check("alive", alive, torch.bool, (n,), device)
     if tile_size < 1:
         raise ValueError(f"tile_size must be positive, got {tile_size}")
 
@@ -259,19 +247,14 @@ def _scalars(n, shs, viewmatrix, projmatrix, campos, options) -> list:
             campos.stride(0)]
 
 
+_PTR, _LL = ctypes.c_void_p, ctypes.c_longlong
 _SCALAR_TYPES = [ctypes.c_int] * 8 + [ctypes.c_float] * 5 + [ctypes.c_int] * 5
-
-
-def _kernel(name: str, argtypes: list):
-    fn = getattr(_build.load(_SOURCE), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+_FORWARD = _build.Kernel("preprocess.cu", "preprocess_fwd",
+                         [_PTR] * 9 + _SCALAR_TYPES + [_PTR] * 8)
+_BACKWARD = _build.Kernel("preprocess.cu", "preprocess_bwd",
+                          [_PTR] * 8 + _SCALAR_TYPES
+                          + [_PTR, _LL, _LL, _PTR, _LL, _PTR, _LL, _LL, _PTR, _LL, _LL]
+                          + [_PTR] * 5)
 
 
 def preprocess_forward_cuda(means3d, scales, quats, shs, cov3d_precomp, viewmatrix,
@@ -297,29 +280,20 @@ def preprocess_forward_cuda(means3d, scales, quats, shs, cov3d_precomp, viewmatr
     tiles_max = torch.empty((n, 2), dtype=i32, device=device)
     visible = torch.empty((n,), dtype=torch.bool, device=device)
     colors = None if shs is None else torch.empty((n, 3), dtype=f32, device=device)
-    fn = _kernel("preprocess_fwd", [ctypes.c_void_p] * 9 + _SCALAR_TYPES
-                 + [ctypes.c_void_p] * 9)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*map(_ptr, (means3d, scales, quats, shs, cov3d_precomp, alive, viewmatrix,
-                             projmatrix, campos)),
-                 *_scalars(n, shs, viewmatrix, projmatrix, campos, options),
-                 *map(_ptr, (means2d, depths, conics, radii, colors, tiles_min, tiles_max,
-                             visible)), stream)
-    if err != 0:
-        raise RuntimeError(f"preprocess_fwd kernel launch failed with CUDA error {err}")
-    _build.LAUNCHES["preprocess_fwd"] += 1
+    _FORWARD(device, means3d, scales, quats, shs, cov3d_precomp, alive, viewmatrix,
+             projmatrix, campos, *_scalars(n, shs, viewmatrix, projmatrix, campos, options),
+             means2d, depths, conics, radii, colors, tiles_min, tiles_max, visible)
     return means2d, depths, conics, radii, tiles_min, tiles_max, visible, colors
 
 
 def _grad_in(g, n, width):
-    """(pointer, row stride, column stride) of an incoming gradient, read in place."""
+    """(tensor, row stride, column stride) of an incoming gradient, read in place."""
     if g is None:
         return [None, 0, 0] if width else [None, 0]
     if g.dtype != torch.float32 or tuple(g.shape) != ((n, width) if width else (n,)):
         raise ValueError(f"a preprocess output gradient has dtype {g.dtype} and shape "
                          f"{tuple(g.shape)}")
-    return [g.data_ptr(), *g.stride()] if width else [g.data_ptr(), g.stride(0)]
+    return [g, *g.stride()] if width else [g, g.stride(0)]
 
 
 def preprocess_backward_cuda(means3d, scales, quats, shs, cov3d_precomp, viewmatrix,
@@ -340,20 +314,10 @@ def preprocess_backward_cuda(means3d, scales, quats, shs, cov3d_precomp, viewmat
     grads = [out(flag, like) for flag, like in zip(
         needs, (means3d, None if cov3d_precomp is not None else scales,
                 None if cov3d_precomp is not None else quats, shs, cov3d_precomp))]
-    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
-    fn = _kernel("preprocess_bwd", [ptr] * 8 + _SCALAR_TYPES
-                 + [ptr, ll, ll, ptr, ll, ptr, ll, ll, ptr, ll, ll] + [ptr] * 6)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*map(_ptr, (means3d, scales, quats, shs, cov3d_precomp, viewmatrix,
-                             projmatrix, campos)),
-                 *_scalars(n, shs, viewmatrix, projmatrix, campos, options),
-                 *_grad_in(g_means2d, n, 2), *_grad_in(g_depths, n, 0),
-                 *_grad_in(g_conics, n, 3), *_grad_in(g_colors, n, 3),
-                 *map(_ptr, grads), stream)
-    if err != 0:
-        raise RuntimeError(f"preprocess_bwd kernel launch failed with CUDA error {err}")
-    _build.LAUNCHES["preprocess_bwd"] += 1
+    _BACKWARD(device, means3d, scales, quats, shs, cov3d_precomp, viewmatrix, projmatrix,
+              campos, *_scalars(n, shs, viewmatrix, projmatrix, campos, options),
+              *_grad_in(g_means2d, n, 2), *_grad_in(g_depths, n, 0),
+              *_grad_in(g_conics, n, 3), *_grad_in(g_colors, n, 3), *grads)
     return tuple(grads)
 
 

@@ -38,8 +38,11 @@ KERNEL_TILE = 16
 #: most language-feature channels the kernel is instantiated for
 MAX_FEATURES = 8
 
-_SOURCE = "blend_fwd.cu"
-_BWD_SOURCE = "blend_bwd.cu"
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_BLEND_FWD = _build.Kernel("blend_fwd.cu", "blend_fwd",
+                           [_PTR] * 9 + [_INT] * 5 + [_PTR] * 2)
+_BLEND_BWD = _build.Kernel("blend_bwd.cu", "blend_bwd",
+                           [_PTR] * 13 + [_INT] * 7 + [_PTR] * 2)
 #: gradient rows of the backward's per-instance output, in order (then the features)
 GRAD_ROWS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "opacity",
              "red", "green", "blue")
@@ -272,17 +275,6 @@ def warp_region_keep(means2d, conics, opacities, visible, gauss_id, tile_id, *, 
     return kept & valid[:, None]
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_blend_inputs(kernel, means2d, conics, opacities, visible, colors, features,
                         gauss_id, tile_start, image_height, image_width, tile_size):
     """Raise on inputs the blend kernels do not take; returns (num_feat, grid_x,
@@ -300,15 +292,15 @@ def _check_blend_inputs(kernel, means2d, conics, opacities, visible, colors, fea
     grid_x, grid_y = _grid(image_height, image_width, tile_size)
     num_tiles = grid_x * grid_y
     f32 = torch.float32
-    _check("means2d", means2d, f32, (n, 2), device)
-    _check("conics", conics, f32, (n, 3), device)
-    _check("opacities", opacities, f32, (n,), device)
-    _check("visible", visible, torch.bool, (n,), device)
-    _check("colors", colors, f32, (n, 3), device)
+    _build.check("means2d", means2d, f32, (n, 2), device)
+    _build.check("conics", conics, f32, (n, 3), device)
+    _build.check("opacities", opacities, f32, (n,), device)
+    _build.check("visible", visible, torch.bool, (n,), device)
+    _build.check("colors", colors, f32, (n, 3), device)
     if features is not None:
-        _check("features", features, f32, (n, num_feat), device)
-    _check("gauss_id", gauss_id, torch.int32, (gauss_id.shape[0],), device)
-    _check("tile_start", tile_start, torch.int32, (num_tiles + 1,), device)
+        _build.check("features", features, f32, (n, num_feat), device)
+    _build.check("gauss_id", gauss_id, torch.int32, (gauss_id.shape[0],), device)
+    _build.check("tile_start", tile_start, torch.int32, (num_tiles + 1,), device)
     return num_feat, grid_x, num_tiles
 
 
@@ -321,31 +313,18 @@ def blend_forward_cuda(means2d, conics, opacities, visible, colors, features, ga
         "blend_forward_cuda", means2d, conics, opacities, visible, colors, features,
         gauss_id, tile_start, image_height, image_width, tile_size)
     f32 = torch.float32
-    _check("bg", bg, f32, (3,), device)
-
-    lib = _build.load(_SOURCE)
-    fn = lib.blend_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    _build.check("bg", bg, f32, (3,), device)
     shape = (3 + num_feat, image_height, image_width)
     if out is None:
         image = torch.empty(shape, dtype=f32, device=device)
         t_final = torch.empty(shape[1:], dtype=f32, device=device)
     else:
         image, t_final = out
-        _check("out image", image, f32, shape, device)
-        _check("out t_final", t_final, f32, shape[1:], device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(),
-                 visible.data_ptr(), colors.data_ptr(),
-                 None if features is None else features.data_ptr(),
-                 gauss_id.data_ptr(), tile_start.data_ptr(), bg.data_ptr(),
-                 num_feat, image_height, image_width, grid_x, num_tiles,
-                 image.data_ptr(), t_final.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"blend_fwd kernel launch failed with CUDA error {err}")
-    _build.LAUNCHES["blend_fwd"] += 1
+        _build.check("out image", image, f32, shape, device)
+        _build.check("out t_final", t_final, f32, shape[1:], device)
+    _BLEND_FWD(device, means2d, conics, opacities, visible, colors, features, gauss_id,
+               tile_start, bg, num_feat, image_height, image_width, grid_x, num_tiles,
+               image, t_final)
     return image, t_final
 
 
@@ -477,40 +456,26 @@ def blend_backward_cuda(means2d, conics, opacities, visible, colors, features, g
     budget = gauss_id.shape[0]
     f32 = torch.float32
     hw = (image_height, image_width)
-    _check("presort_slot", presort_slot, torch.int32, (budget,), device)
-    _check("g_image", g_image, f32, (3 + num_feat,) + hw, device)
-    _check("g_tfinal", g_tfinal, f32, hw, device)
-    _check("total", total, f32, hw, device)
-    _check("t_final", t_final, f32, hw, device)
-
-    lib = _build.load(_BWD_SOURCE)
-    fn = lib.blend_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    _build.check("presort_slot", presort_slot, torch.int32, (budget,), device)
+    _build.check("g_image", g_image, f32, (3 + num_feat,) + hw, device)
+    _build.check("g_tfinal", g_tfinal, f32, hw, device)
+    _build.check("total", total, f32, hw, device)
+    _build.check("t_final", t_final, f32, hw, device)
     if out is None:
         d_pre = torch.zeros((rows, budget), dtype=f32, device=device)
         t_replay = torch.empty(hw, dtype=f32, device=device) if return_t else None
     else:
         d_pre, t_replay = out
-        _check("out d_pre", d_pre, f32, (rows, budget), device)
+        _build.check("out d_pre", d_pre, f32, (rows, budget), device)
         if (t_replay is not None) != return_t:
             raise ValueError("out's t_replay must be given exactly when return_t is set")
         if return_t:
-            _check("out t_replay", t_replay, f32, hw, device)
+            _build.check("out t_replay", t_replay, f32, hw, device)
         d_pre.zero_()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(),
-                 visible.data_ptr(), colors.data_ptr(),
-                 None if features is None else features.data_ptr(),
-                 gauss_id.data_ptr(), tile_start.data_ptr(), presort_slot.data_ptr(),
-                 g_image.data_ptr(), g_tfinal.data_ptr(), total.data_ptr(),
-                 t_final.data_ptr(), num_feat, int(grad_mode == "feature"),
-                 image_height, image_width, grid_x, num_tiles, budget, d_pre.data_ptr(),
-                 None if t_replay is None else t_replay.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"blend_bwd kernel launch failed with CUDA error {err}")
-    _build.LAUNCHES["blend_bwd"] += 1
+    _BLEND_BWD(device, means2d, conics, opacities, visible, colors, features, gauss_id,
+               tile_start, presort_slot, g_image, g_tfinal, total, t_final, num_feat,
+               int(grad_mode == "feature"), image_height, image_width, grid_x, num_tiles,
+               budget, d_pre, t_replay)
     return (d_pre, t_replay) if return_t else d_pre
 
 

@@ -18,7 +18,8 @@ import torch
 
 from langsplat_tpu_torch.ops import _build
 
-_SOURCE = "segsum.cu"
+_SEGSUM = _build.Kernel("segsum.cu", "segsum",
+                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _check_ends(d_pre: torch.Tensor, ends: torch.Tensor, n_out: int) -> None:
@@ -49,31 +50,17 @@ def segment_sum_cuda(d_pre: torch.Tensor, ends: torch.Tensor, n_out: int,
         raise ValueError(f"segment_sum_cuda needs CUDA tensors on one device, got "
                          f"{device} and {ends.device}")
     _check_ends(d_pre, ends, n_out)
-    if d_pre.dtype != torch.float32 or not d_pre.is_contiguous():
-        raise ValueError("d_pre must be contiguous float32")
-    if ends.dtype != torch.int32 or not ends.is_contiguous():
-        raise ValueError("ends must be contiguous int32")
+    _build.check("d_pre", d_pre, torch.float32, d_pre.shape, device)
+    _build.check("ends", ends, torch.int32, ends.shape, device)
     if d_pre.data_ptr() % 16:
         raise ValueError("d_pre must start 16-byte aligned (the kernel copies it in "
                          "16-byte words)")
     rows, width = d_pre.shape
-    lib = _build.load(_SOURCE)
-    fn = lib.segsum
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
     if out is None:
         out = torch.empty((rows, n_out), dtype=torch.float32, device=device)
-    elif (out.device != device or out.dtype != torch.float32
-          or tuple(out.shape) != (rows, n_out) or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous float32 [{rows}, {n_out}] tensor on "
-                         f"{device}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(d_pre.data_ptr(), ends.data_ptr(), rows, width, n_out, out.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"segsum kernel launch failed with CUDA error {err}")
-    _build.LAUNCHES["segsum"] += 1
+    else:
+        _build.check("out", out, torch.float32, (rows, n_out), device)
+    _SEGSUM(device, d_pre, ends, rows, width, n_out, out)
     return out
 
 

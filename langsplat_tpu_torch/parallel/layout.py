@@ -1,5 +1,6 @@
-"""Where the training state lives across the ranks of a multi-device run, and how the
-training loop moves it: setup, densification, capacity growth, gathering for a save.
+"""Where the training state lives across the ranks of a multi-device run, and every
+decision of the training loop that depends on it: setup, the step, the cameras a rank
+renders, densification, capacity growth, gathering for a save or the viewer.
 
 One `Layout` per run, from the pipeline options (the JAX loop's `data_mesh`,
 `gauss_mesh` and `depth_mesh` branches, `langsplat_tpu/train/loop.py:263-382`):
@@ -27,6 +28,8 @@ from langsplat_tpu_torch.parallel import collectives as col
 from langsplat_tpu_torch.parallel import data_parallel as dp
 from langsplat_tpu_torch.parallel import gauss_sharded as gs
 from langsplat_tpu_torch.parallel import mesh as mesh_lib
+from langsplat_tpu_torch.parallel.depth_sharded import depth_feature_step
+from langsplat_tpu_torch.parallel.gauss_densify import sharded_densify
 from langsplat_tpu_torch.train import densify as dn
 from langsplat_tpu_torch.train import trainer as tr
 
@@ -140,10 +143,77 @@ class Layout:
                                                      field.capacity, self.group)
         return field, opt_state, stats
 
-    def full_field(self, field):
+    def step(self, field, opt_state, stats, views, targets, bg, *, settings, optimizer,
+             include_feature: bool, lambda_dssim: float) -> tr.StepOutput:
+        """One training step over this rank's `views` (lists of view, projection and
+        centre matrices) and `targets` (lists of images or feature maps, and of masks);
+        multi-device steps report the group's summed drops, so every rank re-runs alike."""
+        kw = dict(settings=settings, optimizer=optimizer)
+        view, gt, mask = [m[0] for m in views], targets[0][0], targets[1][0]
+        if self.kind is None:
+            if include_feature:
+                return tr.train_step_feature(field, opt_state, stats, *view, gt, mask, bg,
+                                             **kw)
+            return tr.train_step_rgb(field, opt_state, stats, *view, gt, bg,
+                                     lambda_dssim=lambda_dssim, **kw)
+        if self.kind == "depth":
+            field, opt_state, loss, dropped, rect = depth_feature_step(
+                field, opt_state, *view, gt, mask, bg, group=self.group, **kw)
+        else:
+            kw.update(include_feature=include_feature, lambda_dssim=lambda_dssim)
+            o = (dp.dp_train_step(field, opt_state, stats, *views, *targets, bg,
+                                  group=self.group, zero2=self.zero2, **kw)
+                 if self.kind == "data" else
+                 gs.gauss_train_step(field, opt_state, stats, *views, *targets, bg,
+                                     capacity=self.capacity(field),
+                                     gauss_group=self.group, **kw))
+            field, opt_state, stats, loss = o.field, o.opt_state, o.stats, o.loss
+            dropped, rect = o.dropped, o.rect_dropped
+        return tr.StepOutput(field, opt_state, stats, loss, loss, torch.zeros(()),
+                             dropped, rect)
+
+    def cameras(self, iteration: int, schedule) -> tuple[list, object, list]:
+        """(this rank's cameras of `iteration`, the camera whose size sets the settings,
+        the cameras to prefetch) from `schedule` (`train/loop.py Schedule`). Data-parallel
+        iteration i takes positions [(i-1) B, i B), B = world * views a rank, rank r the
+        r-th slice, all of one size; other layouts take position i - 1, prefetching the
+        next in its epoch."""
+        if self.kind != "data":
+            cam = schedule(iteration - 1)
+            return [cam], cam, [schedule(iteration)] if iteration % len(schedule) else []
+        v, size = self.views_per_rank, self.world * self.views_per_rank
+        cams = [schedule((iteration - 1) * size + j) for j in range(size)]
+        cam = cams[0]
+        for c in cams[1:]:
+            if (c.height, c.width) != (cam.height, cam.width):
+                raise ValueError("data-parallel training requires uniform image sizes "
+                                 f"across the view batch, got {c.height}x{c.width} vs "
+                                 f"{cam.height}x{cam.width}")
+        mine = cams[self.rank * v:(self.rank + 1) * v]
+        return mine, cam, mine + [schedule(iteration * size + self.rank * v + j)
+                                  for j in range(v)]
+
+    def densify(self, field, stats, gen: torch.Generator, **rule) -> dn.DensifyResult:
+        """Densify and prune with split noise from `gen`; Gaussian-sharded, the whole
+        capacity's noise as one process draws it, then shard-local slots."""
+        if self.kind != "gauss":
+            return dn.densify_and_prune(field, stats, gen, **rule)
+        noise = torch.randn((self.capacity(field), 2, 3), generator=gen,
+                            dtype=field.xyz.dtype, device=field.xyz.device)
+        return sharded_densify(field, stats, noise, group=self.group, **rule)
+
+    def viewer_field(self, field, gui):
+        """The field the viewer renders (`gui`: rank 0's viewer, else None). Gaussian-
+        sharded, a collective: every rank learns whether a viewer is connected and, while
+        one is, joins the gather of the whole field (None while none is)."""
         if self.kind != "gauss":
             return field
-        return gs.gather_rows(field, field.capacity, self.group)
+        if gui is not None and gui.conn is None:
+            gui.try_connect()
+        connected = col.max_(torch.tensor([int(gui is not None and gui.conn is not None)],
+                                          device=field.xyz.device))
+        return gs.gather_rows(field, field.capacity, self.group) if int(connected[0]) \
+            else None
 
     def grow(self, field, opt_state, new_cap: int):
         """Grow to `new_cap` (rounded up to the layout's multiple) and lay the state out

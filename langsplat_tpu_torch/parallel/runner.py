@@ -18,10 +18,12 @@ import dataclasses
 import functools
 import hashlib
 import sys
+import types
 
 import numpy as np
 import torch
 
+from langsplat_tpu_torch.config import PipelineConfig
 from langsplat_tpu_torch.models import field_io
 from langsplat_tpu_torch.models.gaussian_field import FIELD_NAMES, from_numpy
 from langsplat_tpu_torch.ops.render import render
@@ -35,6 +37,7 @@ from langsplat_tpu_torch.parallel.dp_spatial import dp_spatial_train_step
 from langsplat_tpu_torch.parallel.gauss_densify import sharded_densify
 from langsplat_tpu_torch.parallel.gauss_sharded import (gather_rows, gauss_train_step,
                                                         shard_rows)
+from langsplat_tpu_torch.parallel.layout import Layout
 from langsplat_tpu_torch.parallel.spatial import spatial_render
 from langsplat_tpu_torch.train import densify as dn
 from langsplat_tpu_torch.train import trainer as tr
@@ -115,10 +118,10 @@ def _step_out(field, opt_state, stats, loss, dropped, rect, extra=None) -> dict:
 
 
 def _until_nothing_drops(step, settings, capacity: int):
-    """Run step(settings), growing the caps as the training loop does (max_tiles
-    doubled while rect positions drop, the budget by 1.5x while instances drop) until
-    nothing drops; (output, settings). The counts are the group's sums, so every rank
-    grows alike."""
+    """Run step(settings) until nothing drops; (output, settings). Not the training
+    loop's rule: max_tiles doubles up to the tile grid while rect positions drop, the
+    budget grows 1.5x, in no granule, up to 64 x capacity while instances drop. The
+    counts are the group's sums, so every rank grows alike."""
     grid_cap = settings.grid_x * settings.grid_y
     while True:
         out = step(settings)
@@ -297,6 +300,23 @@ def densify(spec, device):
                 overflow=int(res.overflow), num_alive=int(res.num_alive))
 
 
+def viewer_field(spec, device):
+    """`Layout.viewer_field`, Gaussian-sharded over the world, rank 0's viewer connected
+    or not (spec: params, connected): the field this rank got back, the collectives it
+    joined and the viewer's connection attempts."""
+    layout = Layout.from_config(PipelineConfig(gauss_shards=col.size()), False, device)
+    field, _, _ = layout.setup(_field(spec, device), {}, None)
+    attempts = []
+    gui = None if col.rank() else types.SimpleNamespace(
+        conn=object() if spec["connected"] else None,
+        try_connect=lambda: attempts.append(1))
+    col.reset()
+    got = layout.viewer_field(field, gui)
+    calls = {name: rec["calls"] for name, rec in col.timings().items()}
+    return dict(gathered=got is not None, field={} if got is None else _field_np(got),
+                calls=calls, connect_attempts=len(attempts))
+
+
 def collectives_check(spec, device):
     """Every collective of `collectives.py` on this rank's device against the values
     computed here on the CPU (spec: rows, cols): the largest absolute difference each."""
@@ -339,7 +359,7 @@ def collectives_check(spec, device):
 TASKS = {f.__name__: f for f in (dp_step, dp_spatial_step, gauss_step, spatial_step,
                                  render_step,
                                  depth_step, depth_full, depth_feature, densify,
-                                 collectives_check)}
+                                 viewer_field, collectives_check)}
 
 
 def digest(out) -> str:

@@ -6,7 +6,7 @@ densify_from and densify_until every densification_interval, opacity resets, per
 test/save/checkpoint, all under the fixed-capacity regime: Adam moment rows are zeroed
 for churned slots and the capacity grows geometrically when densification overflows.
 A step whose render dropped instances (budget) or tile positions (max_tiles) is
-discarded and re-run at grown caps, as the JAX loop does.
+discarded and re-run at grown caps, as the JAX loop does (`rerun_until_nothing_drops`).
 
 With `gui_port`, each iteration first serves the SIBR viewer (`utils/network_gui.py`).
 With `cfg.profile_dir`, a `torch.profiler` trace of iterations [profile_from,
@@ -17,7 +17,9 @@ with the port's spans (`utils/tracing.py`) as `langsplat.*` annotations: `iterat
 `evaluate` and `save`.
 The JAX loop's multi-device branches (data-parallel with ZeRO-2, Gaussian-sharded with
 shard-local densification, depth-sharded phase B) run inside a process group, one
-process per rank (`parallel/launch.py`, `parallel/layout.py`).
+process per rank (`parallel/launch.py`); the run's `parallel/layout.py Layout` makes
+every decision that depends on them (the step, the cameras, densification, the viewer's
+field), so `training` reads the same for all of them.
 """
 
 from __future__ import annotations
@@ -38,10 +40,6 @@ from langsplat_tpu_torch.models import field_io
 from langsplat_tpu_torch.ops import _build
 from langsplat_tpu_torch.ops.render import RenderSettings, count_instances, render
 from langsplat_tpu_torch.parallel import collectives as col
-from langsplat_tpu_torch.parallel.data_parallel import dp_train_step
-from langsplat_tpu_torch.parallel.depth_sharded import depth_feature_step
-from langsplat_tpu_torch.parallel.gauss_densify import sharded_densify
-from langsplat_tpu_torch.parallel.gauss_sharded import gauss_train_step
 from langsplat_tpu_torch.parallel.layout import Layout
 from langsplat_tpu_torch.train import densify as dn
 from langsplat_tpu_torch.train import trainer as tr
@@ -247,9 +245,8 @@ class TraceWindow:
 
 
 def _views(cams, device):
-    """The camera matrices of a list of cameras: (views, projections, centers) lists."""
-    mats = [_camera_tensors(c, device) for c in cams]
-    return [m[0] for m in mats], [m[1] for m in mats], [m[2] for m in mats]
+    """The camera matrices of a list of cameras: (views, projections, centers)."""
+    return tuple(zip(*(_camera_tensors(c, device) for c in cams)))
 
 
 def _state_hashes(layout, field, opt_state, stats) -> list[str]:
@@ -260,6 +257,256 @@ def _state_hashes(layout, field, opt_state, stats) -> list[str]:
         raise RuntimeError(f"the replicated training state differs across ranks: "
                            f"{hashes}")
     return hashes
+
+
+class Schedule:
+    """`schedule(i)`: the camera at position i of the per-epoch camera order, a pure
+    function of (seed, epoch), so a resumed run sees the views an uninterrupted run would
+    (the JAX package's schedule); `len(schedule)`: the cameras an epoch."""
+
+    def __init__(self, cams: list, seed: int):
+        self.cams, self.seed = cams, seed
+        self.epoch, self.order = -1, []
+
+    def __len__(self) -> int:
+        return len(self.cams)
+
+    def __call__(self, idx: int):
+        epoch, pos = divmod(idx, len(self.cams))
+        if epoch != self.epoch:
+            self.order = list(range(len(self.cams)))
+            random.Random(self.seed * 1_000_003 + epoch).shuffle(self.order)
+            self.epoch = epoch
+        return self.cams[self.order[pos]]
+
+
+def rerun_until_nothing_drops(attempt, budget: BudgetPolicy, tmax: TmaxPolicy,
+                              capacity: int, pipe, log, iteration: int):
+    """The discard-and-re-run rule: `attempt(budget, max_tiles)` runs a training step at
+    those caps, its inputs left as they were. While a step drops tile positions or
+    instances, `tmax` and then `budget` grow and the step runs again (`step_reruns`); at
+    both caps it raises, or, with pipe.allow_budget_truncation, keeps the truncated step
+    with a warning through `log`. Returns (the step's output, the instances it dropped)."""
+    while True:
+        out = attempt(budget.budget, tmax.tmax)
+        dropped = tracing.host_read("step.dropped", out.dropped)
+        rect = tracing.host_read("step.rect_dropped", out.rect_dropped)
+        if dropped == 0 and rect == 0:
+            return out, dropped
+        grew = False
+        if rect > 0 and tmax.grow():
+            log(f"[iter {iteration}] max_tiles_per_gaussian -> {tmax.tmax} ({rect} rect "
+                f"positions dropped)")
+            grew = True
+        if dropped > 0 and budget.grow(capacity):
+            log(f"[iter {iteration}] instance budget -> {budget.budget} ({dropped} "
+                f"dropped)")
+            grew = True
+        if not grew:
+            msg = (f"[iter {iteration}] {dropped} instances dropped at the budget cap "
+                   f"{budget.cap(capacity)} and {rect} rect positions dropped at "
+                   f"max_tiles={tmax.tmax} (capacity {capacity}, budget_factor "
+                   f"{pipe.budget_factor}); raise pipeline.budget_factor, or opt into "
+                   f"truncation with pipeline.allow_budget_truncation")
+            if not pipe.allow_budget_truncation:
+                raise RuntimeError(msg)
+            log("WARNING (truncated step): " + msg)
+            return out, dropped
+        tracing.COUNTERS["step_reruns"] += 1
+
+
+class _Run:
+    """One rank's training run: its scene, state (laid out over the ranks by `layout`),
+    capacity, SH degree and caps' policies, and the pieces of an iteration."""
+
+    def __init__(self, cfg: TrainConfig, device: torch.device):
+        mcfg, ocfg, pipe = cfg.model, cfg.optimization, cfg.pipeline
+        include_feature = ocfg.include_feature
+        self.cfg, self.device = cfg, device
+        self.layout = layout = Layout.from_config(pipe, include_feature, device)
+        main = layout.is_main
+        self.logger = logger = RunLogger(mcfg.model_path if main else None,
+                                         quiet=cfg.quiet or not main)
+
+        self.scene = scene = Scene(
+            mcfg if main else replace(mcfg, model_path=""), device=device,
+            initial_capacity_factor=ocfg.initial_capacity_factor, seed=cfg.seed,
+            create_field=not cfg.start_checkpoint)
+        field = scene.gaussians
+        spatial_lr_scale = scene.cameras_extent
+        active_sh_degree = 0
+        first_iter = 0
+
+        if include_feature and not cfg.start_checkpoint:
+            raise ValueError("feature training requires a phase-A checkpoint "
+                             "(--start_checkpoint)")
+
+        resume_full = False
+        if cfg.start_checkpoint:
+            field, first_iter, spatial_lr_scale, active_sh_degree, ck_has_feature = \
+                field_io.load_field(cfg.start_checkpoint, device=device)
+            # a same-phase checkpoint with optimizer and statistics groups resumes the
+            # whole training state; a cross-phase one restores the field only
+            resume_full = (ck_has_feature == include_feature
+                           and field_io.checkpoint_has_state(cfg.start_checkpoint))
+            if include_feature and not ck_has_feature:
+                first_iter = 0   # the phase handoff restarts the iteration count
+        if include_feature:
+            field = field.with_language_feature(
+                3, generator=torch.Generator().manual_seed(cfg.seed))
+
+        self.optimizer = tr.make_optimizer(ocfg, spatial_lr_scale, include_feature)
+        opt_state = self.optimizer.init(tr.extract_params(field, include_feature))
+        stats = dn.DensifyStats.zeros(field.capacity, device)
+        if resume_full:
+            field, opt_state, stats, first_iter, spatial_lr_scale, active_sh_degree = \
+                field_io.load_checkpoint(cfg.start_checkpoint, device=device)
+            logger.log(f"resumed full training state at iteration {first_iter} "
+                       f"(capacity {field.capacity})")
+        self.first_iter, self.spatial_lr_scale, self.active_sh_degree = \
+            first_iter, spatial_lr_scale, active_sh_degree
+
+        if mcfg.model_path and main:
+            save_config(cfg, os.path.join(mcfg.model_path, "cfg_args.json"))
+
+        self.bg = torch.tensor([1.0, 1.0, 1.0] if mcfg.white_background
+                               else [0.0, 0.0, 0.0], device=device)
+        self.budget = BudgetPolicy(pipe, field.capacity)
+        self.tmax = TmaxPolicy(pipe, scene.get_train_cameras() + scene.get_test_cameras())
+        if pipe.adaptive_budget:
+            probe_cam = scene.get_train_cameras()[0]
+            probe_settings = make_settings(probe_cam, pipe, 0, include_feature,
+                                           field.capacity, budget=BudgetPolicy.GRANULE,
+                                           max_tiles=self.tmax.tmax)
+            with torch.no_grad():
+                cnt = count_instances(field, probe_settings,
+                                      *_camera_tensors(probe_cam, device))
+            self.budget.resize(field.capacity, cnt)
+            logger.log(f"instance budget {self.budget.budget} "
+                       f"(probed {cnt}, cap {self.budget.cap(field.capacity)})")
+
+        # the full state is identical on every rank here; lay it out over the ranks
+        self.field, self.opt_state, self.stats = layout.setup(field, opt_state, stats)
+        self.capacity = layout.capacity(self.field)
+        if layout.kind is not None:
+            logger.log(f"{layout.kind}-parallel over {layout.world} rank(s) "
+                       f"({col.backend(layout.group)}), capacity {self.capacity}"
+                       + (", ZeRO-2 optimizer rows" if layout.zero2 else ""))
+
+    def step(self, iteration: int, mine: list, cam, views, prefetcher):
+        """The training step on this rank's cameras `mine` (matrices `views`; `cam` sets
+        the settings) under `rerun_until_nothing_drops`; the state moves to its output.
+        Returns (the step's output, the instances it dropped)."""
+        pipe, ocfg = self.cfg.pipeline, self.cfg.optimization
+        include_feature = ocfg.include_feature
+        if include_feature:
+            fm = [prefetcher.get(c) for c in mine]
+            targets = [f for f, _ in fm], [m for _, m in fm]
+        else:   # the RGB loss reads no mask
+            targets = [_device_image(c, self.device) for c in mine], [None] * len(mine)
+
+        def attempt(budget: int, max_tiles: int) -> tr.StepOutput:
+            settings = make_settings(cam, pipe, self.active_sh_degree, include_feature,
+                                     self.capacity, budget=budget, max_tiles=max_tiles)
+            return self.layout.step(self.field, self.opt_state, self.stats, views, targets,
+                                    self.bg, settings=settings, optimizer=self.optimizer,
+                                    include_feature=include_feature,
+                                    lambda_dssim=ocfg.lambda_dssim)
+
+        out, dropped = rerun_until_nothing_drops(attempt, self.budget, self.tmax,
+                                                 self.capacity, pipe, self.logger.log,
+                                                 iteration)
+        self.field, self.opt_state, self.stats = out.field, out.opt_state, out.stats
+        return out, dropped
+
+    def densify(self, iteration: int) -> None:
+        """Phase A's densification (growing the capacity when it overflows) and opacity
+        reset, on their schedules."""
+        mcfg, ocfg = self.cfg.model, self.cfg.optimization
+        if ocfg.include_feature or iteration >= ocfg.densify_until_iter:
+            return
+        layout, logger = self.layout, self.logger
+        if (iteration > ocfg.densify_from_iter
+                and iteration % ocfg.densification_interval == 0):
+            # the split noise is a pure function of (seed, iteration), so a resumed run,
+            # and every rank, draws what an uninterrupted run would
+            gen = torch.Generator(self.device).manual_seed(
+                self.cfg.seed * 1_000_003 + iteration)
+            res = layout.densify(self.field, self.stats, gen,
+                                 extent=self.scene.cameras_extent,
+                                 grad_threshold=ocfg.densify_grad_threshold,
+                                 percent_dense=ocfg.percent_dense, min_opacity=0.005,
+                                 use_size_threshold=iteration > ocfg.opacity_reset_interval,
+                                 size_threshold=20.0)
+            self.field, self.stats = res.field, res.stats
+            self.opt_state = tr.zero_moment_rows(self.opt_state,
+                                                 layout.local_mask(res.reset_mask))
+            overflow = tracing.host_read("densify.overflow", res.overflow)
+            if overflow > 0:
+                new_cap = layout.round_capacity(
+                    int(self.capacity * ocfg.capacity_growth_factor))
+                logger.log(f"[iter {iteration}] capacity {self.capacity} -> {new_cap} "
+                           f"(overflow {overflow})")
+                self.field, self.opt_state, self.stats = layout.grow(
+                    self.field, self.opt_state, new_cap)
+                self.capacity = new_cap
+            logger.scalar("total_points", tracing.host_read(
+                "densify.num_alive", res.num_alive), iteration)
+
+        if iteration % ocfg.opacity_reset_interval == 0 or (
+                mcfg.white_background and iteration == ocfg.densify_from_iter):
+            self.field = dn.reset_opacity(self.field)
+            rows = self.opt_state["opacity"]["mu"].shape[0]
+            self.opt_state = tr.zero_moment_rows(
+                self.opt_state, torch.ones(rows, dtype=torch.bool, device=self.device),
+                only_label="opacity")
+
+    def evaluate_and_save(self, iteration: int) -> None:
+        """This iteration's test report, PLY and checkpoint, if any: every rank joins the
+        gather; rank 0 reports and writes while the others wait at the barrier."""
+        cfg, mcfg, logger = self.cfg, self.cfg.model, self.logger
+        include_feature = cfg.optimization.include_feature
+        testing = iteration in cfg.test_iterations
+        saving = iteration in cfg.save_iterations and mcfg.model_path
+        checkpointing = iteration in cfg.checkpoint_iterations and mcfg.model_path
+        if not (testing or saving or checkpointing):
+            return
+        full_field, full_opt, full_stats = self.layout.full(self.field, self.opt_state,
+                                                            self.stats)
+        if self.layout.is_main:
+            if testing:
+                with tracing.span("evaluate"):
+                    report = evaluate_psnr(
+                        full_field, self.scene, cfg.pipeline, self.active_sh_degree,
+                        include_feature, self.bg, budget=self.budget.budget,
+                        max_tiles=self.tmax.tmax,
+                        lf_path=mcfg.lf_path if include_feature else None,
+                        feature_level=mcfg.feature_level)
+                for name, rep in report.items():
+                    logger.log(f"[ITER {iteration}] Evaluating {name}: L1 "
+                               f"{rep['l1']:.5f} PSNR {rep['psnr']:.3f}")
+                    logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"],
+                                  iteration)
+                    logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"],
+                                  iteration)
+                    if rep.get("feature_l1") is not None:
+                        logger.log(f"[ITER {iteration}] Evaluating {name}: "
+                                   f"feature-L1 {rep['feature_l1']:.5f}")
+                        logger.scalar(f"{name}/loss_viewpoint - feature_l1",
+                                      rep["feature_l1"], iteration)
+            if saving:
+                logger.log(f"[ITER {iteration}] Saving Gaussians")
+                with tracing.span("save"):
+                    self.scene.save(iteration, full_field)
+            if checkpointing:
+                logger.log(f"[ITER {iteration}] Saving Checkpoint")
+                with tracing.span("save"):
+                    field_io.save_checkpoint(
+                        os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"),
+                        full_field, full_opt, full_stats, iteration,
+                        self.spatial_lr_scale, self.active_sh_degree)
+        del full_field, full_opt, full_stats
+        col.barrier(self.layout.group)
 
 
 def training(cfg: TrainConfig, device: str | torch.device | None = None,
@@ -277,113 +524,28 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
     run (`parallel/layout.py`): every rank runs this loop; rank 0 alone writes the
     configuration, PLY files, checkpoints, log, trace and serves the viewer."""
     device = resolve_device(device)
+    run = _Run(cfg, device)
     mcfg, ocfg, pipe = cfg.model, cfg.optimization, cfg.pipeline
-    include_feature = ocfg.include_feature
-    layout = Layout.from_config(pipe, include_feature, device)
+    layout, logger = run.layout, run.logger
     main = layout.is_main
-    logger = RunLogger(mcfg.model_path if main else None, quiet=cfg.quiet or not main)
-
-    scene = Scene(mcfg if main else replace(mcfg, model_path=""), device=device,
-                  initial_capacity_factor=ocfg.initial_capacity_factor, seed=cfg.seed,
-                  create_field=not cfg.start_checkpoint)
-    field = scene.gaussians
-    spatial_lr_scale = scene.cameras_extent
-    active_sh_degree = 0
-    first_iter = 0
-
-    if include_feature and not cfg.start_checkpoint:
-        raise ValueError("feature training requires a phase-A checkpoint "
-                         "(--start_checkpoint)")
-
-    resume_full = False
-    if cfg.start_checkpoint:
-        field, first_iter, spatial_lr_scale, active_sh_degree, ck_has_feature = \
-            field_io.load_field(cfg.start_checkpoint, device=device)
-        # a same-phase checkpoint with optimizer and statistics groups resumes the
-        # whole training state; a cross-phase one restores the field only
-        resume_full = (ck_has_feature == include_feature
-                       and field_io.checkpoint_has_state(cfg.start_checkpoint))
-        if include_feature and not ck_has_feature:
-            first_iter = 0   # the phase handoff restarts the iteration count
-    if include_feature:
-        field = field.with_language_feature(
-            3, generator=torch.Generator().manual_seed(cfg.seed))
-
-    optimizer = tr.make_optimizer(ocfg, spatial_lr_scale, include_feature)
-    opt_state = optimizer.init(tr.extract_params(field, include_feature))
-    stats = dn.DensifyStats.zeros(field.capacity, device)
-    if resume_full:
-        field, opt_state, stats, first_iter, spatial_lr_scale, active_sh_degree = \
-            field_io.load_checkpoint(cfg.start_checkpoint, device=device)
-        logger.log(f"resumed full training state at iteration {first_iter} "
-                   f"(capacity {field.capacity})")
-
-    if mcfg.model_path and main:
-        save_config(cfg, os.path.join(mcfg.model_path, "cfg_args.json"))
-
-    bg = torch.tensor([1.0, 1.0, 1.0] if mcfg.white_background else [0.0, 0.0, 0.0],
-                      device=device)
-    budget_policy = BudgetPolicy(pipe, field.capacity)
-    tmax_policy = TmaxPolicy(pipe, scene.get_train_cameras() + scene.get_test_cameras())
-    if pipe.adaptive_budget:
-        probe_cam = scene.get_train_cameras()[0]
-        probe_settings = make_settings(probe_cam, pipe, 0, include_feature,
-                                       field.capacity, budget=BudgetPolicy.GRANULE,
-                                       max_tiles=tmax_policy.tmax)
-        with torch.no_grad():
-            cnt = count_instances(field, probe_settings,
-                                  *_camera_tensors(probe_cam, device))
-        budget_policy.resize(field.capacity, cnt)
-        logger.log(f"instance budget {budget_policy.budget} "
-                   f"(probed {cnt}, cap {budget_policy.cap(field.capacity)})")
-
-    # the full state is identical on every rank here; lay it out over the ranks
-    field, opt_state, stats = layout.setup(field, opt_state, stats)
-    capacity = layout.capacity(field)
-    if layout.kind is not None:
-        logger.log(f"{layout.kind}-parallel over {layout.world} rank(s) "
-                   f"({col.backend(layout.group)}), capacity {capacity}"
-                   + (", ZeRO-2 optimizer rows" if layout.zero2 else ""))
-
-    # per-epoch camera order, a pure function of (seed, epoch), so a resumed run sees
-    # the view sequence an uninterrupted run would (the JAX package's schedule)
-    train_cams = scene.get_train_cameras()
-    cur_epoch, epoch_order = -1, []
-
-    def schedule_cam(idx: int):
-        nonlocal cur_epoch, epoch_order
-        epoch, pos = divmod(idx, len(train_cams))
-        if epoch != cur_epoch:
-            epoch_order = list(range(len(train_cams)))
-            random.Random(cfg.seed * 1_000_003 + epoch).shuffle(epoch_order)
-            cur_epoch = epoch
-        return train_cams[epoch_order[pos]], pos
-
-    # data-parallel batches: iteration i takes schedule positions
-    # [(i-1) B, i B), B = world * views a rank, and rank r the r-th slice of them
-    dp_batch = layout.world * layout.views_per_rank
-
-    def rank_cams(iteration: int) -> list:
-        first = (iteration - 1) * dp_batch + layout.rank * layout.views_per_rank
-        return [schedule_cam(first + j)[0] for j in range(layout.views_per_rank)]
-
+    schedule = Schedule(run.scene.get_train_cameras(), cfg.seed)
     timer = Timer(device)
     history: list[float] = []
     step_ms: list[float] = []
     prefetcher = (FeaturePrefetcher(mcfg.lf_path, mcfg.feature_level, device=device)
-                  if include_feature else None)
+                  if ocfg.include_feature else None)
 
     def gui_render(view_field, minicam, scale_mod):
         settings = RenderSettings(
             image_height=minicam.height, image_width=minicam.width,
             tanfovx=minicam.tanfovx, tanfovy=minicam.tanfovy,
-            sh_degree=active_sh_degree, include_feature=False,
+            sh_degree=run.active_sh_degree, include_feature=False,
             scale_modifier=float(scale_mod), tile_size=pipe.tile_size,
             budget=pipe.budget_factor * view_field.capacity,
             backend="tiled" if pipe.interpret else "cuda")
         with torch.no_grad():
             return render(view_field, settings, *_camera_tensors(minicam, device),
-                          bg)["render"]
+                          run.bg)["render"]
 
     gui = None
     if gui_port and main:
@@ -397,13 +559,12 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
             logger.log(f"network GUI disabled ({e})")
             gui.close()
             gui = None
-
     col.reset()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     window, trace = None, None
     try:
-        for iteration in range(first_iter + 1, ocfg.iterations + 1):
+        for iteration in range(run.first_iter + 1, ocfg.iterations + 1):
             if cfg.profile_dir and main:
                 if iteration == cfg.profile_from:
                     window = TraceWindow(device, iteration)
@@ -415,237 +576,41 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
                                f"{trace['path']}")
             with tracing.span("iteration", call=iteration):
                 if gui_port:
-                    view_field = field
-                    if layout.kind == "gauss":
-                        # the viewer renders the whole field, which no rank holds:
-                        # gather it for every frame of an iteration a viewer is
-                        # connected in
-                        if gui is not None and gui.conn is None:
-                            gui.try_connect()
-                        connected = col.max_(torch.tensor(
-                            [int(gui is not None and gui.conn is not None)],
-                            device=device))
-                        view_field = (layout.full_field(field) if int(connected[0])
-                                      else None)
+                    view_field = layout.viewer_field(run.field, gui)
                     if gui is not None:
                         gui.poll(lambda c, s: gui_render(view_field, c, s),
                                  mcfg.source_path, iteration, ocfg.iterations)
 
-                if iteration % 1000 == 0 and active_sh_degree < mcfg.sh_degree:
-                    active_sh_degree += 1
+                if iteration % 1000 == 0 and run.active_sh_degree < mcfg.sh_degree:
+                    run.active_sh_degree += 1
 
-                if layout.kind == "data":
-                    batch = [schedule_cam((iteration - 1) * dp_batch + j)[0]
-                             for j in range(dp_batch)]
-                    cam = batch[0]
-                    for c in batch[1:]:
-                        if (c.height, c.width) != (cam.height, cam.width):
-                            raise ValueError(
-                                "data-parallel training requires uniform image sizes "
-                                f"across the view batch, got {c.height}x{c.width} vs "
-                                f"{cam.height}x{cam.width}")
-                    mine = rank_cams(iteration)
-                    if prefetcher is not None:
-                        for c in mine + rank_cams(iteration + 1):
-                            prefetcher.schedule(c)
-                    views = _views(mine, device)
-                else:
-                    cam, epoch_pos = schedule_cam(iteration - 1)
-                    if prefetcher is not None and epoch_pos + 1 < len(train_cams):
-                        prefetcher.schedule(train_cams[epoch_order[epoch_pos + 1]])
-                    mine = [cam]
-                    views = _views(mine, device)
-
-                def targets():
-                    if include_feature:
-                        fm = [prefetcher.get(c) for c in mine]
-                        return [f for f, _ in fm], [m for _, m in fm]
-                    return ([_device_image(c, device) for c in mine],
-                            [torch.ones((1, 1, 1), device=device)] * len(mine))
-
+                mine, cam, ahead = layout.cameras(iteration, schedule)
+                if prefetcher is not None:
+                    for c in ahead:
+                        prefetcher.schedule(c)
+                views = _views(mine, device)
                 timer.start()
-                while True:
-                    settings = make_settings(cam, pipe, active_sh_degree,
-                                             include_feature, capacity,
-                                             budget=budget_policy.budget,
-                                             max_tiles=tmax_policy.tmax)
-                    step_kw = dict(settings=settings, optimizer=optimizer,
-                                   include_feature=include_feature,
-                                   lambda_dssim=ocfg.lambda_dssim)
-                    if layout.kind == "data":
-                        o = dp_train_step(field, opt_state, stats, *views, *targets(),
-                                          bg, group=layout.group, zero2=layout.zero2,
-                                          **step_kw)
-                        out = tr.StepOutput(o.field, o.opt_state, o.stats, o.loss, o.loss,
-                                            torch.zeros(()), o.dropped, o.rect_dropped)
-                    elif layout.kind == "gauss":
-                        o = gauss_train_step(field, opt_state, stats, *views,
-                                             *targets(), bg, capacity=capacity,
-                                             gauss_group=layout.group, **step_kw)
-                        out = tr.StepOutput(o.field, o.opt_state, o.stats, o.loss, o.loss,
-                                            torch.zeros(()), o.dropped, o.rect_dropped)
-                    elif layout.kind == "depth":
-                        gt_feat, gt_mask = prefetcher.get(cam)
-                        nf, no, dloss, ddrop, drect = depth_feature_step(
-                            field, opt_state, *(m[0] for m in views), gt_feat, gt_mask,
-                            bg, settings=settings, optimizer=optimizer,
-                            group=layout.group)
-                        out = tr.StepOutput(nf, no, stats, dloss, dloss, torch.zeros(()),
-                                            ddrop, drect)
-                    elif include_feature:
-                        gt_feat, gt_mask = prefetcher.get(cam)
-                        out = tr.train_step_feature(field, opt_state, stats,
-                                                    *(m[0] for m in views), gt_feat,
-                                                    gt_mask, bg, settings=settings,
-                                                    optimizer=optimizer)
-                    else:
-                        out = tr.train_step_rgb(field, opt_state, stats,
-                                                *(m[0] for m in views),
-                                                _device_image(cam, device), bg,
-                                                settings=settings, optimizer=optimizer,
-                                                lambda_dssim=ocfg.lambda_dssim)
-                    # multi-device steps report the group's summed counts, so every
-                    # rank decides to retry alike
-                    dropped = tracing.host_read("step.dropped", out.dropped)
-                    rect = tracing.host_read("step.rect_dropped", out.rect_dropped)
-                    if dropped == 0 and rect == 0:
-                        break
-                    # discard the truncated step (field, opt_state and stats are still
-                    # the values before it) and re-run it at the grown cap(s)
-                    grew = False
-                    if rect > 0 and tmax_policy.grow():
-                        logger.log(f"[iter {iteration}] max_tiles_per_gaussian -> "
-                                   f"{tmax_policy.tmax} ({rect} rect positions dropped)")
-                        grew = True
-                    if dropped > 0 and budget_policy.grow(capacity):
-                        logger.log(f"[iter {iteration}] instance budget -> "
-                                   f"{budget_policy.budget} ({dropped} dropped)")
-                        grew = True
-                    if not grew:
-                        msg = (f"[iter {iteration}] {dropped} instances dropped at the "
-                               f"budget cap {budget_policy.cap(capacity)} and {rect} "
-                               f"rect positions dropped at max_tiles={tmax_policy.tmax} "
-                               f"(capacity {capacity}, budget_factor "
-                               f"{pipe.budget_factor}); raise pipeline.budget_factor, "
-                               f"or opt into truncation with "
-                               f"pipeline.allow_budget_truncation")
-                        if not pipe.allow_budget_truncation:
-                            raise RuntimeError(msg)
-                        logger.log("WARNING (truncated step): " + msg)
-                        break
-                    tracing.COUNTERS["step_reruns"] += 1
-                field, opt_state, stats = out.field, out.opt_state, out.stats
+                out, dropped = run.step(iteration, mine, cam, views, prefetcher)
                 elapsed = timer.stop()
                 step_ms.append(elapsed)
 
                 loss_val = tracing.host_read("step.loss", out.loss)
                 if pipe.debug:
-                    logger.log(f"[iter {iteration}] debug: budget={budget_policy.budget} "
-                               f"cap={budget_policy.cap(capacity)} dropped={dropped} "
-                               f"alive={field.num_alive}/{field.capacity} (this rank)")
+                    logger.log(f"[iter {iteration}] debug: budget={run.budget.budget} "
+                               f"cap={run.budget.cap(run.capacity)} dropped={dropped} "
+                               f"alive={run.field.num_alive}/{run.field.capacity} "
+                               f"(this rank)")
                 history.append(loss_val)
                 logger.progress(iteration, loss_val,
-                                extra=f" n={field.num_alive} {elapsed:.0f}ms")
+                                extra=f" n={run.field.num_alive} {elapsed:.0f}ms")
                 logger.scalar("train_loss_patches/l1_loss",
                               tracing.host_read("step.l1", out.l1), iteration)
                 logger.scalar("train_loss_patches/total_loss", loss_val, iteration)
                 logger.scalar("iter_time", elapsed, iteration)
 
-                # densification (phase A only)
                 with tracing.span("densify"):
-                    if not include_feature and iteration < ocfg.densify_until_iter:
-                        if (iteration > ocfg.densify_from_iter
-                                and iteration % ocfg.densification_interval == 0):
-                            # the split noise is a pure function of (seed, iteration), so
-                            # a resumed run, and every rank, draws what an uninterrupted
-                            # run would
-                            gen = torch.Generator(device).manual_seed(
-                                cfg.seed * 1_000_003 + iteration)
-                            rule = dict(
-                                extent=scene.cameras_extent,
-                                grad_threshold=ocfg.densify_grad_threshold,
-                                percent_dense=ocfg.percent_dense, min_opacity=0.005,
-                                use_size_threshold=(iteration
-                                                    > ocfg.opacity_reset_interval),
-                                size_threshold=20.0)
-                            if layout.kind == "gauss":
-                                # shard-local slots, serial-equal decisions
-                                noise = torch.randn((capacity, 2, 3), generator=gen,
-                                                    dtype=field.xyz.dtype, device=device)
-                                res = sharded_densify(field, stats, noise,
-                                                      group=layout.group, **rule)
-                            else:
-                                res = dn.densify_and_prune(field, stats, gen, **rule)
-                            field, stats = res.field, res.stats
-                            opt_state = tr.zero_moment_rows(
-                                opt_state, layout.local_mask(res.reset_mask))
-                            overflow = tracing.host_read("densify.overflow", res.overflow)
-                            if overflow > 0:
-                                new_cap = layout.round_capacity(
-                                    int(capacity * ocfg.capacity_growth_factor))
-                                logger.log(f"[iter {iteration}] capacity {capacity} -> "
-                                           f"{new_cap} (overflow {overflow})")
-                                field, opt_state, stats = layout.grow(field, opt_state,
-                                                                      new_cap)
-                                capacity = new_cap
-                            logger.scalar("total_points", tracing.host_read(
-                                "densify.num_alive", res.num_alive), iteration)
-
-                        if iteration % ocfg.opacity_reset_interval == 0 or (
-                                mcfg.white_background
-                                and iteration == ocfg.densify_from_iter):
-                            field = dn.reset_opacity(field)
-                            rows = opt_state["opacity"]["mu"].shape[0]
-                            opt_state = tr.zero_moment_rows(
-                                opt_state,
-                                torch.ones(rows, dtype=torch.bool, device=device),
-                                only_label="opacity")
-
-                saving = (iteration in cfg.test_iterations
-                          or (iteration in cfg.save_iterations and mcfg.model_path)
-                          or (iteration in cfg.checkpoint_iterations and mcfg.model_path))
-                if saving:
-                    # every rank joins the gather; rank 0 reports and writes, the others
-                    # wait for it at the barrier
-                    full_field, full_opt, full_stats = layout.full(field, opt_state,
-                                                                   stats)
-                if saving and main:
-                    if iteration in cfg.test_iterations:
-                        with tracing.span("evaluate"):
-                            report = evaluate_psnr(
-                                full_field, scene, pipe, active_sh_degree,
-                                include_feature, bg, budget=budget_policy.budget,
-                                max_tiles=tmax_policy.tmax,
-                                lf_path=mcfg.lf_path if include_feature else None,
-                                feature_level=mcfg.feature_level)
-                        for name, rep in report.items():
-                            logger.log(f"[ITER {iteration}] Evaluating {name}: L1 "
-                                       f"{rep['l1']:.5f} PSNR {rep['psnr']:.3f}")
-                            logger.scalar(f"{name}/loss_viewpoint - l1_loss", rep["l1"],
-                                          iteration)
-                            logger.scalar(f"{name}/loss_viewpoint - psnr", rep["psnr"],
-                                          iteration)
-                            if rep.get("feature_l1") is not None:
-                                logger.log(f"[ITER {iteration}] Evaluating {name}: "
-                                           f"feature-L1 {rep['feature_l1']:.5f}")
-                                logger.scalar(f"{name}/loss_viewpoint - feature_l1",
-                                              rep["feature_l1"], iteration)
-
-                    if iteration in cfg.save_iterations and mcfg.model_path:
-                        logger.log(f"[ITER {iteration}] Saving Gaussians")
-                        with tracing.span("save"):
-                            scene.save(iteration, full_field)
-
-                    if iteration in cfg.checkpoint_iterations and mcfg.model_path:
-                        logger.log(f"[ITER {iteration}] Saving Checkpoint")
-                        with tracing.span("save"):
-                            field_io.save_checkpoint(
-                                os.path.join(mcfg.model_path, f"chkpnt{iteration}.npz"),
-                                full_field, full_opt, full_stats, iteration,
-                                spatial_lr_scale, active_sh_degree)
-                if saving:
-                    del full_field, full_opt, full_stats
-                    col.barrier(layout.group)
+                    run.densify(iteration)
+                run.evaluate_and_save(iteration)
 
         if window is not None:    # the loop ended inside the window
             trace = window.stop(cfg.profile_dir, ocfg.iterations + 1)
@@ -659,6 +624,7 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
         if prefetcher is not None:
             prefetcher.close()
         logger.close()
+    field, opt_state, stats = run.field, run.opt_state, run.stats
     hashes = _state_hashes(layout, field, opt_state, stats)
     collective_ms = col.timings()
     field, opt_state, stats = layout.full(field, opt_state, stats)
@@ -668,8 +634,8 @@ def training(cfg: TrainConfig, device: str | torch.device | None = None,
                 peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
                                    if device.type == "cuda" else None),
                 launches=dict(_build.LAUNCHES), state_hashes=hashes)
-    return {"field": field, "opt_state": opt_state, "stats": stats, "scene": scene,
-            "history": history, "active_sh_degree": active_sh_degree, "trace": trace,
+    return {"field": field, "opt_state": opt_state, "stats": stats, "scene": run.scene,
+            "history": history, "active_sh_degree": run.active_sh_degree, "trace": trace,
             "parallel": info}
 
 

@@ -119,7 +119,7 @@ def protocol_argv(p, scene_dir: str, out: str, iterations: int, seed: int,
 
 def schedule_position(n_train: int, seed: int, idx: int) -> int:
     """The train camera (index into the scene's seeded train list) the loop takes at
-    schedule index `idx` (iteration idx + 1): `train/loop.py schedule_cam`."""
+    schedule index `idx` (iteration idx + 1): `train/loop.py Schedule`."""
     epoch, pos = divmod(idx, n_train)
     order = list(range(n_train))
     random.Random(seed * 1_000_003 + epoch).shuffle(order)

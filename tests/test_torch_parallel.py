@@ -13,6 +13,8 @@ rounding-level gradient differences stay rounding-level), densify decisions equa
   - the Gaussian-sharded step on ('gauss',), ('data', 'gauss') and in the feature phase;
   - the sharded densify's decisions against the serial rule, and its conservative
     overflow;
+  - the Gaussian-sharded layout's viewer field: gathered on every rank while rank 0's
+    viewer is connected, by no rank while none is;
   - every collective and the gather's backward against the CPU arithmetic; the mesh
     factorization; a failing rank ends the run, named by the first stamped failure;
     NCCL refuses more ranks than cards.
@@ -33,9 +35,10 @@ from langsplat_tpu.parallel import mesh as jmesh
 from langsplat_tpu.train import densify as jdn
 from langsplat_tpu.train import trainer as jtr
 from langsplat_tpu_torch.config import OptimizationConfig
-from langsplat_tpu_torch.models.gaussian_field import FIELD_NAMES, create_from_pcd
+from langsplat_tpu_torch.models.gaussian_field import (FIELD_NAMES, create_from_pcd,
+                                                       from_numpy)
 from langsplat_tpu_torch.ops.render import RenderSettings
-from langsplat_tpu_torch.parallel import launch, mesh, runner
+from langsplat_tpu_torch.parallel import gauss_sharded, launch, mesh, runner
 from langsplat_tpu_torch.train import trainer as ttr
 
 from tests.test_parallel import batched_cameras
@@ -200,6 +203,9 @@ def _tiny_tmax_case():
                 **inputs(False, 12, views=1, h=48, w=64)), jset
 
 
+VIEWER_SEED = 11
+VIEWER = ("connected", "none")
+
 DENSIFY = {"decisions": lambda: densify_case(64, 20, 4, slice(None, None, 2), stride=13),
            "overflow": lambda: densify_case(16, 8, 1, list(range(8)))}
 
@@ -230,11 +236,13 @@ def two_ranks(built):
     tasks = [(CASES[n][0], cases[n][0]) for n in CASES]
     tasks += [("depth_full", growth[k][0]) for k in ("budget", "tmax")]
     tasks += [("densify", dens[k]) for k in DENSIFY]
+    tasks += [("viewer_field", {"params": field_params(VIEWER_SEED),
+                                "connected": k == "connected"}) for k in VIEWER]
     tasks += [("collectives_check", {})]
     outs = launch.spawn(runner.run, (tasks,), 2, device_type="cpu", threads=1,
                         run_timeout=RUN_TIMEOUT)
     names = list(CASES) + ["full_budget", "full_tmax"] + [f"densify_{k}" for k in DENSIFY] \
-        + ["collectives"]
+        + [f"viewer_{k}" for k in VIEWER] + ["collectives"]
     return [dict(zip(names, o)) for o in outs]
 
 
@@ -485,6 +493,29 @@ def test_sharded_densify_overflow_is_conservative(built, two_ranks):
     port = two_ranks[0]["densify_overflow"]
     assert int(serial.overflow) == 0 < port["overflow"] == int(sharded.overflow)
     assert port["num_alive"] == int(sharded.num_alive) <= int(serial.num_alive)
+
+
+@pytest.mark.parametrize("viewer", VIEWER)
+def test_gauss_viewer_field_is_gathered_only_while_a_viewer_is_connected(two_ranks,
+                                                                         viewer):
+    """`Layout.viewer_field` on 2 Gaussian-sharded ranks, rank 0's viewer connected or
+    not: every rank joins the all-reduce that says whether one is; while one is, every
+    rank joins the gather of each leaf and gets the whole field (rows in `spread_rows`
+    order); while none is, no rank gathers, and rank 0 tries to accept a viewer."""
+    full = gauss_sharded.spread_rows(from_numpy(field_params(VIEWER_SEED), "cpu"), 32, 2)
+    want = {n: getattr(full, n).numpy() for n in FIELD_NAMES
+            if getattr(full, n) is not None}
+    for r, o in enumerate(two_ranks):
+        got = o[f"viewer_{viewer}"]
+        if viewer == "connected":
+            assert got["gathered"] and got["calls"] == {"max": 1,
+                                                        "all_gather_rows": len(want)}, r
+            assert sorted(got["field"]) == sorted(want)
+            for n, v in want.items():
+                np.testing.assert_array_equal(got["field"][n], v, err_msg=n)
+        else:
+            assert not got["gathered"] and got["calls"] == {"max": 1}, r
+        assert got["connect_attempts"] == int(r == 0 and viewer == "none"), r
 
 
 def test_collectives_match_the_cpu_arithmetic(two_ranks):

@@ -7,6 +7,8 @@ versions of the kernels, on the benchmark's tiny box field (64x48, 3,000 Gaussia
   the spans inside the profiled window;
 - the counters move as documented (`host_syncs` per site, `render_attempts` against a
   forced retry, `step_reruns`), and the old counter names are views of the registry;
+- the loop's discard-and-re-run rule re-runs a step at grown caps until it drops
+  nothing, raises at both caps, or keeps the truncated step when asked to;
 - outputs are bit-equal with tracing on and off;
 - each per-layer reader of the benchmark (`bench_port/metrics/`) gives its documented
   number on a hand-made session, and None where it has nothing to read.
@@ -324,6 +326,55 @@ def test_loop_iterations_in_a_trace_window(tmp_path):
     with open(result["trace"]["path"]) as f:
         events = json.load(f)["traceEvents"]
     assert sum(e.get("name") == "langsplat.iteration" for e in events) == 3
+
+
+@pytest.mark.parametrize("case", ["reruns", "raises", "truncates"])
+def test_rerun_until_nothing_drops(case):
+    """`loop.rerun_until_nothing_drops` with a step that reports a set sequence of
+    (dropped instances, dropped rect positions): max_tiles 2 -> 4 -> 8 -> 12 (the 4x3
+    grid of a 64x48 view) and the budget 8,192 -> 12,288 -> 20,480 -> 32,768 (4 x
+    capacity, in granules of 4,096) grow with what drops, and each re-run is counted;
+    past both caps the rule raises with the caps in its message, or, with
+    allow_budget_truncation, logs a warning and keeps the last step."""
+    class Cam:
+        width, height = 64, 48
+
+    pipe = PipelineConfig(budget_factor=4, max_tiles_per_gaussian=2,
+                          allow_budget_truncation=case == "truncates")
+    capacity = 8192
+    budget, tmax = loop.BudgetPolicy(pipe, capacity), loop.TmaxPolicy(pipe, [Cam()])
+    drops = [(5, 0), (0, 3), (2, 1), (0, 0)] if case == "reruns" else [(1, 1)] * 6
+    caps, lines = [], []
+
+    def attempt(b, t):
+        caps.append((b, t))
+        d, r = drops[len(caps) - 1]
+        return trainer.StepOutput(*[None] * 6, torch.tensor(d), torch.tensor(r))
+
+    reruns = COUNTERS["step_reruns"]
+    if case == "raises":
+        with pytest.raises(RuntimeError, match=r"\[iter 7\] 1 instances dropped at the "
+                           r"budget cap 32768 and 1 rect positions dropped at "
+                           r"max_tiles=12 \(capacity 8192, budget_factor 4\)"):
+            loop.rerun_until_nothing_drops(attempt, budget, tmax, capacity, pipe,
+                                           lines.append, 7)
+    else:
+        out, dropped = loop.rerun_until_nothing_drops(attempt, budget, tmax, capacity,
+                                                      pipe, lines.append, 7)
+        assert int(out.dropped) == dropped == drops[len(caps) - 1][0]
+    if case == "reruns":
+        assert caps == [(8192, 2), (12288, 2), (12288, 4), (20480, 8)]
+        assert lines == ["[iter 7] instance budget -> 12288 (5 dropped)",
+                         "[iter 7] max_tiles_per_gaussian -> 4 (3 rect positions dropped)",
+                         "[iter 7] max_tiles_per_gaussian -> 8 (1 rect positions dropped)",
+                         "[iter 7] instance budget -> 20480 (2 dropped)"]
+    else:
+        assert caps == [(8192, 2), (12288, 4), (20480, 8), (32768, 12)]
+        assert len(lines) == 6 + (case == "truncates")
+        assert lines[-1].startswith("WARNING (truncated step): [iter 7] 1 instances "
+                                    "dropped at the budget cap 32768") == (
+            case == "truncates")
+    assert COUNTERS["step_reruns"] - reruns == len(caps) - 1
 
 
 # ---------------------------------------------------------------------------
