@@ -9,8 +9,8 @@ times both paths.
 
 Phases (any failure ends the run with a non-zero exit):
   1. the device: name, count, and `nvidia-smi` name and power limit;
-  2. the kernels (csrc/blend_fwd.cu, blend_bwd.cu, segsum.cu, preprocess.cu, ssim.cu)
-     are built with nvcc, one process per source, all started together, then each is
+  2. the kernels (csrc/blend_fwd.cu, blend_bwd.cu, segsum.cu, preprocess.cu, ssim.cu,
+     binning.cu) are built with nvcc, one process per source, all started together, then each is
      compared with its plain version at small odd sizes: the blend forward and backward
      with F = 0 and 3 and both grad modes, the segment sum with segments longer than 32
      (the forward kernel, wherever it is compared, also twice with itself, bit for bit),
@@ -29,7 +29,10 @@ Phases (any failure ends the run with a non-zero exit):
   4. render timings at full width, view 0: one whole `render_full` (host clock, ending
      in a synchronize), and with CUDA events preprocess, binning and the blend kernel,
      the plain version's time, the kernel's bound from this run's work, and the share
-     of (instance, warp-region) pairs the blend kernels' cull keeps; the projection and
+     of (instance, warp-region) pairs the blend kernels' cull keeps; the binning
+     kernels on view 0's preprocess output (`binning_check`: every InstanceBuffer field
+     bit-equal to the plain version and over two calls, their device ms beside the plain
+     version's and the bytes bound, the launches of each entry point); the projection and
      SH kernels forward and backward on phase 3's 1M-Gaussian field against the plain
      version and autograd (checked as in phase 2), with their times, the plain
      version's and their bytes bounds;
@@ -58,7 +61,9 @@ Phases (any failure ends the run with a non-zero exit):
      each kernel launched once more with every output a view inside 64 KiB of guard
      words on each side: no guard word may change, and the outputs must equal the
      launches into tensors of their own bit for bit;
-  7. training timings at full width: per step (host clock, median of 5 after warm-up),
+  7. the binning check of phase 4 on each trained field's view 0 (phase A: 1M SfM
+     points cloned to a capacity of 2.25M, 64-bit sort keys); training timings at full
+     width: per step (host clock, median of 5 after warm-up),
      its parts with CUDA events (forward render, loss, backward, optimizer), the
      device's idle share over 3 profiled steps, and the forward, backward and
      segment-sum kernels' times, plain times, bounds (each blend bound counts the
@@ -195,7 +200,8 @@ TRAIN_STEPS = 20
 # of ~50 px radius, the tile cap grown past the culled range): past the default cap of
 # 6 instances per Gaussian of capacity, at which the training loop refuses to truncate.
 BUDGET_FLAGS = ["--budget_factor", "24"]
-SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu", "preprocess.cu", "ssim.cu"]
+SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu", "preprocess.cu", "ssim.cu",
+           "binning.cu"]
 PREP_ULPS = 4         # projection and SH kernel's float outputs vs plain, in float32 ulps
 PREP_TOL = 1e-5       # its gradients vs autograd of plain, relative to each leaf's norm
 SSIM_MEAN_TOL = 1e-6  # SSIM kernels' mean vs plain, relative (summation order)
@@ -777,6 +783,60 @@ def check_ssim(res: dict) -> None:
 # Timing
 # ---------------------------------------------------------------------------
 
+#: the InstanceBuffer fields the binning kernels must give bit for bit
+BIN_FIELDS = ("gauss_id", "tile_id", "tile_start", "num_instances", "dropped",
+              "rect_dropped", "presort_slot", "gauss_offsets")
+#: bytes binning must read a Gaussian: means2d 8, conics 12, tile rect 16, visible 1,
+#: opacity 4, depth 4
+BIN_READ_BYTES = 45
+
+
+def binning_check(prep, opac, settings) -> dict:
+    """The binning kernels (csrc/binning.cu) on one view's preprocess output at the
+    settings' caps: every InstanceBuffer field bit-equal to the plain version on the card
+    and over two calls; their device ms (torch.profiler) and wall ms a call, the plain
+    version's, the launches of each entry point a call, and the bytes bound: the
+    Gaussians' BIN_READ_BYTES read, the budget-sized outputs (12 B a slot) and
+    gauss_offsets written, and each kept (key, slot) pair read and written once by the
+    sort."""
+    kw = dict(grid_x=settings.grid_x, grid_y=settings.grid_y, budget=settings.budget,
+              tile_size=settings.tile_size,
+              max_tiles_per_gaussian=settings.max_tiles_per_gaussian, opacities=opac)
+    got = tiles.bin_gaussians_cuda(prep, **kw)
+    again = tiles.bin_gaussians_cuda(prep, **kw)
+    want = tiles.bin_gaussians_plain(prep, **kw)
+    unequal = [f for f in BIN_FIELDS if not torch.equal(getattr(got, f), getattr(want, f))]
+    unequal += [f"{f} (again)" for f in BIN_FIELDS
+                if not torch.equal(getattr(got, f), getattr(again, f))]
+    if unequal:
+        raise RuntimeError(f"the binning kernels' buffer differs from the plain "
+                           f"version's in {unequal}")
+    n, budget = prep.means2d.shape[0], settings.budget
+    num = int(got.num_instances)
+    bits = max(1, (n - 1).bit_length()) + (settings.grid_x * settings.grid_y
+                                           - 1).bit_length()
+    pair_bytes = (8 if bits > 32 else 4) + 4
+    nbytes = (BIN_READ_BYTES * n + 12 * budget + 4 * (n + 1)
+              + 4 * (settings.grid_x * settings.grid_y + 1) + 2 * pair_bytes * num)
+    before = dict(_build.LAUNCHES)
+    tiles.bin_gaussians_cuda(prep, **kw)
+    launches = {k: _build.LAUNCHES[k] - before[k] for k in before
+                if _build.LAUNCHES[k] != before[k]}
+    kernels = profile_render(lambda: tiles.bin_gaussians_cuda(prep, **kw), reps=5,
+                             host_events=False)
+    plain = profile_render(lambda: tiles.bin_gaussians_plain(prep, **kw), reps=3,
+                           host_events=False)
+    return dict(gaussians=n, visible=int(prep.visible.sum()), budget=budget,
+                instances=num, dropped=int(got.dropped),
+                rect_dropped=int(got.rect_dropped), tmax=settings.max_tiles_per_gaussian,
+                key_bits=bits, bit_equal=True, launches=launches,
+                ms=kernels["device_ms_per_call"], wall_ms=kernels["wall_ms_per_call"],
+                plain_ms=plain["device_ms_per_call"],
+                plain_wall_ms=plain["wall_ms_per_call"],
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
+                top_kernels_ms=kernels["top_kernels_ms_per_call"])
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
@@ -1127,6 +1187,9 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
         f"forward blends in "
         f"{shares['blended_region_share']:.4f}; none it blends in is skipped")
 
+    binning = binning_check(prep, bargs[2], settings)
+    log(f"phase 7 ({phase}) binning, view 0: " + json.dumps(binning))
+
     # 7. timings
     gt = target
     step = train_step_fn(field, opt_state, stats, cam, settings, optimizer, phase, gt,
@@ -1158,7 +1221,8 @@ def training_checks_and_timings(phase, result, cam, pipe, device, target, mask):
     timing.update(segsum_bound_ms=sbound, segsum_bound_by=sbound_by, segsum_work=swork)
     log(f"phase 7 ({phase}): " + json.dumps(timing))
     log(f"phase 7 ({phase}) profile over 3 steps: " + json.dumps(profile_render(step)))
-    return dict(timing, guards=guards, errors=dict(blend_fwd=fwd_err, blend_bwd=abs_err,
+    return dict(timing, guards=guards, binning=binning,
+                errors=dict(blend_fwd=fwd_err, blend_bwd=abs_err,
                                     blend_bwd_rel=rel_err, segsum=seg_err,
                                     segsum_rel=seg_rel))
 
@@ -1868,7 +1932,13 @@ TRACE_RUNS = {"A": dict(steps=10, first=6, window=3, traced=(6, 9)),
 KERNEL_SYMBOLS = {"blend_fwd": "blend_fwd_kernel", "blend_bwd": "blend_bwd_kernel",
                   "segsum": "segsum_kernel", "preprocess_fwd": "preprocess_fwd_kernel",
                   "preprocess_bwd": "preprocess_bwd_kernel",
-                  "ssim_fwd": "ssim_fwd_kernel", "ssim_bwd": "ssim_bwd_kernel"}
+                  "ssim_fwd": "ssim_fwd_kernel", "ssim_bwd": "ssim_bwd_kernel",
+                  "bin_count": "binning_count_kernel", "bin_emit": "binning_emit_kernel",
+                  "bin_ranges": "binning_ranges_kernel"}
+# binning's entry points (csrc/binning.cu); bin_rank and bin_sort launch a radix sort's
+# three kernels a pass, as many passes as the key has bytes, so the trace check above
+# holds their counters to no symbol
+BIN_KERNELS = ("bin_count", "bin_rank", "bin_emit", "bin_sort", "bin_ranges")
 # the kernels of phase A's step alone: phase B has no geometric gradient and no SSIM
 PHASE_A_ONLY = ("preprocess_bwd", "ssim_fwd", "ssim_bwd")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -1968,7 +2038,7 @@ def trace_phase(tmp: str, train_scene: str, run_prefix: str) -> dict:
             raise RuntimeError(f"11a ({name}): expected a trace of iterations "
                                f"{run['traced']}, got {trace}")
         device = read_trace(trace)
-        counted = trace["launches"]
+        counted = {k: v for k, v in trace["launches"].items() if k in KERNEL_SYMBOLS}
         needed = {k: k not in PHASE_A_ONLY or name == "A" for k in counted}
         if (device["launches_in_trace"] != counted
                 or any((counted[k] >= 1) != needed[k] for k in counted)):
@@ -2847,6 +2917,8 @@ def main() -> int:
                 log(f"phase 4 ({mode}) profile: " + json.dumps(profile_render(
                     lambda: render_full(gpu_field, cam, pipe, 3, feat, [0.0, 0.0, 0.0],
                                         device=device))))
+        binning_full = binning_check(runs[True][2], runs[True][4][2], runs[True][0])
+        log("phase 4 (binning, view 0 at the render's caps): " + json.dumps(binning_full))
         prep_full = preprocess_full_width(gpu_field, cam, device)
         log("phase 4 (projection and SH, 1M Gaussians, SH 3): " + json.dumps(prep_full))
         check_preprocess("phase 4", prep_full)
@@ -3055,6 +3127,16 @@ def main() -> int:
              plain_ms=ssim_res["bwd_plain_ms"], bound_ms=ssim_res["bwd_bound_ms"],
              bound_by="bytes", library_ms=None, tol=SSIM_TOL, tol_of="max-relative",
              bytes_per_value=ssim_res["bytes_per_value"][1]),
+        dict(name="binning", route="cuda", source="langsplat_tpu_torch/csrc/binning.cu",
+             replaces="none: XLA runs langsplat_tpu/ops/tiles.py:251 bin_gaussians",
+             launches={k: launches[k] for k in BIN_KERNELS},
+             launches_by_path={k: by_path[k] for k in BIN_KERNELS},
+             bit_equal=True, ms=binning_full["ms"], plain_ms=binning_full["plain_ms"],
+             bound_ms=binning_full["bound_ms"], bound_by="bytes", library_ms=None,
+             tol=0, tol_of="every InstanceBuffer field exact",
+             train_ms=[ta["binning"]["ms"], tb["binning"]["ms"]],
+             train_plain_ms=[ta["binning"]["plain_ms"], tb["binning"]["plain_ms"]],
+             train_bound_ms=[ta["binning"]["bound_ms"], tb["binning"]["bound_ms"]]),
     ]
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))

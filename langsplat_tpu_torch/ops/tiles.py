@@ -6,21 +6,34 @@ PyTorch counterpart of `langsplat_tpu/ops/tiles.py:251 bin_gaussians`. The outpu
 arrays, the same gaussian-major pre-sort slot order, the same [tile | depth rank] sort
 key, the same padding sentinels and drop counters.
 
-What differs is only how it is built. The JAX package propagates per-Gaussian rows over
-the budget axis with scatter+cumsum and keeps the tile-pass mask as uint32 bit words,
-because random gathers are slow on a TPU; here the mask is a [N, tmax] bool tensor and
-the instances are its `nonzero()` entries, which come out in the same gaussian-major,
-rect-position order. The sort key is int64 (torch has little uint32 support) with the
-same bit layout as the JAX fused uint32 key.
+`bin_gaussians` and `instance_counts` dispatch by device. CPU tensors take the plain
+versions (`bin_gaussians_plain`): the pass mask is a [N, tmax] bool tensor
+(`tile_pass_mask`; the JAX package packs the same bits into uint32 words) and the
+instances are its `nonzero()` entries, which come out in the same gaussian-major,
+rect-position order; the sort key is int64 with the JAX fused uint32 key's bit layout.
+That costs six host syncs and ~40 elementwise ops on [N, tmax] tensors a view.
+
+CUDA tensors take the kernels of `csrc/binning.cu` (`bin_gaussians_cuda`), bit-equal to
+the plain version on every field, or raise. What bounds binning is device-memory bytes:
+~45 B read a Gaussian, the budget-sized outputs written, ~1.5M keys sorted at 1M
+Gaussians, ~0.1 ms on an H100. The design keeps it there: a count kernel runs the cull
+in registers and scans the counts on the device (the total, num_instances and dropped
+never reach the host), a radix sort ranks the Gaussians by depth, an emit kernel runs
+the cull again and writes each kept instance's [tile | depth rank] key at its
+gaussian-major slot, the radix sort orders only the kept keys (their count read on the
+device) over only the key's used bits, and a range pass writes the outputs and their
+padding. No host sync, no [N, tmax] intermediate, a fixed number of launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 
 import torch
 
+from langsplat_tpu_torch.ops import _build
 from langsplat_tpu_torch.ops.projection import PreprocessOut
 from langsplat_tpu_torch.ops.rasterize_reference import ALPHA_EPS
 from langsplat_tpu_torch.utils import tracing
@@ -111,11 +124,27 @@ def tile_pass_mask(prep: PreprocessOut, *, tile_size: int, tmax: int,
     return torch.where(rect > tmax, full, passing)
 
 
+def _culled(tile_size: int | None, tmax: int, cull: bool) -> bool:
+    """Whether binning runs the tile cull (else each rect's first tmax positions)."""
+    return cull and tile_size is not None and tmax <= MAX_CULL_TMAX
+
+
 def instance_counts(prep: PreprocessOut, *, tile_size: int | None, tmax: int,
                     cull: bool = True,
                     opacities: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-Gaussian int32 instance count a bin_gaussians call would produce."""
-    if cull and tile_size is not None and tmax <= MAX_CULL_TMAX:
+    """Per-Gaussian int32 instance count a bin_gaussians call would produce: on CUDA
+    tensors the count kernel that binning runs, else the plain version."""
+    kw = dict(tile_size=tile_size, tmax=tmax, cull=cull, opacities=opacities)
+    if prep.means2d.device.type == "cuda":
+        return instance_counts_cuda(prep, **kw)
+    return instance_counts_plain(prep, **kw)
+
+
+def instance_counts_plain(prep: PreprocessOut, *, tile_size: int | None, tmax: int,
+                          cull: bool = True,
+                          opacities: torch.Tensor | None = None) -> torch.Tensor:
+    """`instance_counts` in plain PyTorch, on any device."""
+    if _culled(tile_size, tmax, cull):
         mask = tile_pass_mask(prep, tile_size=tile_size, tmax=tmax, opacities=opacities)
         return mask.sum(dim=1, dtype=torch.int32)
     w = prep.tiles_max[:, 0] - prep.tiles_min[:, 0]
@@ -134,8 +163,22 @@ def bin_gaussians(prep: PreprocessOut, *, grid_x: int, grid_y: int, budget: int,
     over the clipped rect); the first `budget` of them are kept, sorted by tile and
     then by the Gaussian's depth rank (ties by Gaussian index), and padded to `budget`.
     With `tile_size` given (and cull=True), tiles the ellipse cannot reach at alpha >=
-    1/255 are left out, per `tile_pass_mask`.
+    1/255 are left out, per `tile_pass_mask`. CUDA tensors take the kernels
+    (`bin_gaussians_cuda`), others the plain version; both give the same buffer.
     """
+    kw = dict(grid_x=grid_x, grid_y=grid_y, budget=budget,
+              max_tiles_per_gaussian=max_tiles_per_gaussian, tile_size=tile_size,
+              cull=cull, opacities=opacities)
+    if prep.means2d.device.type == "cuda":
+        return bin_gaussians_cuda(prep, **kw)
+    return bin_gaussians_plain(prep, **kw)
+
+
+def bin_gaussians_plain(prep: PreprocessOut, *, grid_x: int, grid_y: int, budget: int,
+                        max_tiles_per_gaussian: int = 32, tile_size: int | None = None,
+                        cull: bool = True,
+                        opacities: torch.Tensor | None = None) -> InstanceBuffer:
+    """`bin_gaussians` in plain PyTorch, on any device (six host syncs)."""
     n = prep.means2d.shape[0]
     device = prep.means2d.device
     num_tiles = grid_x * grid_y
@@ -144,7 +187,7 @@ def bin_gaussians(prep: PreprocessOut, *, grid_x: int, grid_y: int, budget: int,
     w = prep.tiles_max[:, 0] - prep.tiles_min[:, 0]
     h = prep.tiles_max[:, 1] - prep.tiles_min[:, 1]
     full_count = torch.where(prep.visible, w * h, 0).to(torch.int64)
-    if cull and tile_size is not None and tmax <= MAX_CULL_TMAX:
+    if _culled(tile_size, tmax, cull):
         mask = tile_pass_mask(prep, tile_size=tile_size, tmax=tmax, opacities=opacities)
         count = mask.sum(dim=1)
         # culled tiles inside the rect are provably zero-contribution, not dropped; the
@@ -207,3 +250,117 @@ def bin_gaussians(prep: PreprocessOut, *, grid_x: int, grid_y: int, budget: int,
         gauss_offsets=gauss_offsets.to(torch.int32),
         max_tiles=tmax,
     )
+
+
+# ---------------------------------------------------------------------------
+# The kernels of csrc/binning.cu
+# ---------------------------------------------------------------------------
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: n, lam0, tile size, tmax, cull, budget, 64-bit keys
+_CULL_ARGS = [_INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _INT]
+_COUNT = _build.Kernel("binning.cu", "bin_count", [_PTR] * 7 + _CULL_ARGS + [_PTR] * 6)
+_RANK = _build.Kernel("binning.cu", "bin_rank", [_PTR] + [_INT] * 3)
+_EMIT = _build.Kernel("binning.cu", "bin_emit",
+                      [_PTR] * 6 + _CULL_ARGS + [_PTR, _INT, _INT, _PTR])
+_SORT = _build.Kernel("binning.cu", "bin_sort", [_PTR] + [_INT] * 4 + [_PTR] * 2)
+_RANGES = _build.Kernel("binning.cu", "bin_ranges", [_PTR] + [_INT] * 6 + [_PTR] * 5)
+#: the int32 words of the kernels' scratch for (n, budget, 64-bit keys)
+_SCRATCH_WORDS = _build.Kernel("binning.cu", "bin_scratch_words", [_INT] * 3,
+                               ctypes.c_longlong, launch=False)
+#: the output fields of an InstanceBuffer, in the order of its int32 outputs buffer
+_OUT_FIELDS = ("gauss_id", "tile_id", "presort_slot", "tile_start", "gauss_offsets",
+               "num_instances", "dropped", "rect_dropped")
+
+
+def _kernel_inputs(prep: PreprocessOut, opacities: torch.Tensor | None) -> tuple:
+    """preprocess's outputs and the opacities as the kernels read them (contiguous; a
+    copy only where a caller passed a strided view), checked."""
+    device = prep.means2d.device
+    n = prep.means2d.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    ins = [t.contiguous() for t in (prep.means2d, prep.conics, prep.tiles_min,
+                                    prep.tiles_max, prep.visible, prep.depths)]
+    for name, t, dtype, shape in zip(
+            ("means2d", "conics", "tiles_min", "tiles_max", "visible", "depths"), ins,
+            (f32, f32, i32, i32, torch.bool, f32), ((n, 2), (n, 3), (n, 2), (n, 2), (n,),
+                                                    (n,))):
+        _build.check(name, t, dtype, shape, device)
+    if opacities is not None:
+        opacities = opacities.reshape(-1).contiguous()
+        _build.check("opacities", opacities, f32, (n,), device)
+    return (*ins, opacities)
+
+
+def _cull_args(n: int, tile_size: int | None, tmax: int, cull: bool, budget: int = 0,
+               key64: bool = False) -> list:
+    if tmax < 0:
+        raise ValueError(f"max_tiles_per_gaussian must be >= 0, got {tmax}")
+    culled = _culled(tile_size, tmax, cull)
+    return [n, -math.log(ALPHA_EPS), float(tile_size) if culled else 0.0, tmax, int(culled),
+            budget, int(key64)]
+
+
+def instance_counts_cuda(prep: PreprocessOut, *, tile_size: int | None, tmax: int,
+                         cull: bool = True,
+                         opacities: torch.Tensor | None = None) -> torch.Tensor:
+    """`instance_counts` on the count kernel (one `bin_count` launch, no host sync)."""
+    device = prep.means2d.device
+    means2d, conics, tmin, tmax_, visible, _, opac = _kernel_inputs(prep, opacities)
+    n = means2d.shape[0]
+    counts = torch.empty((n,), dtype=torch.int32, device=device)
+    _COUNT(device, means2d, conics, tmin, tmax_, visible, opac, None,
+           *_cull_args(n, tile_size, tmax, cull), None, counts, None, None, None, None)
+    return counts
+
+
+def bin_gaussians_cuda(prep: PreprocessOut, *, grid_x: int, grid_y: int, budget: int,
+                       max_tiles_per_gaussian: int = 32, tile_size: int | None = None,
+                       cull: bool = True, opacities: torch.Tensor | None = None,
+                       out: InstanceBuffer | None = None) -> InstanceBuffer:
+    """`bin_gaussians` on the kernels of csrc/binning.cu (CUDA tensors): `bin_count`,
+    `bin_rank`, `bin_emit`, `bin_sort`, `bin_ranges`, one launch each, with no host
+    sync. `out` (an InstanceBuffer of int32 tensors of the output shapes) receives the
+    result in place. Inputs of other dtypes or shapes raise."""
+    device = prep.means2d.device
+    if device.type != "cuda":
+        raise ValueError(f"bin_gaussians_cuda needs CUDA tensors, got {device}")
+    means2d, conics, tmin, tmax_, visible, depths, opac = _kernel_inputs(prep, opacities)
+    n = means2d.shape[0]
+    tmax = max_tiles_per_gaussian
+    num_tiles = grid_x * grid_y
+    if budget < 0 or num_tiles < 1:
+        raise ValueError(f"budget {budget} and grid {grid_x}x{grid_y} must be positive")
+    rank_bits = max(1, (n - 1).bit_length())
+    bits = rank_bits + (num_tiles - 1).bit_length()
+    if bits > 64:
+        raise ValueError(f"a sort key of {bits} bits does not fit 64")
+    key64 = bits > 32
+
+    shapes = dict(gauss_id=(budget,), tile_id=(budget,), presort_slot=(budget,),
+                  tile_start=(num_tiles + 1,), gauss_offsets=(n + 1,), num_instances=(),
+                  dropped=(), rect_dropped=())
+    if out is None:   # one allocation, cut into the fields (the counters 0-dim)
+        sizes = [budget] * 3 + [num_tiles + 1, n + 1, 1, 1, 1]
+        parts = torch.empty((sum(sizes),), dtype=torch.int32, device=device).split(sizes)
+        outs = dict(zip(_OUT_FIELDS, [*parts[:5], *(p[0] for p in parts[5:])]))
+    else:
+        outs = {name: getattr(out, name) for name in _OUT_FIELDS}
+        for name in _OUT_FIELDS:
+            _build.check(name, outs[name], torch.int32, shapes[name], device)
+
+    scratch = torch.empty((_SCRATCH_WORDS(n, budget, int(key64)),), dtype=torch.int32,
+                          device=device)
+    args = _cull_args(n, tile_size, tmax, cull, budget, key64)
+    _COUNT(device, means2d, conics, tmin, tmax_, visible, opac, depths, *args, scratch,
+           None, outs["gauss_offsets"], outs["num_instances"], outs["dropped"],
+           outs["rect_dropped"])
+    _RANK(device, scratch, n, budget, int(key64))
+    _EMIT(device, means2d, conics, tmin, tmax_, visible, opac, *args, scratch, grid_x,
+          rank_bits, outs["gauss_offsets"])
+    _SORT(device, scratch, n, budget, int(key64), bits, outs["num_instances"],
+          outs["presort_slot"])
+    _RANGES(device, scratch, n, budget, int(key64), bits, rank_bits, num_tiles,
+            outs["num_instances"], outs["tile_id"], outs["gauss_id"], outs["presort_slot"],
+            outs["tile_start"])
+    return InstanceBuffer(**outs, max_tiles=tmax)

@@ -56,6 +56,8 @@ COUNTERS: dict[str, int] = {
     "launches.blend_fwd": 0, "launches.blend_bwd": 0, "launches.segsum": 0,
     "launches.preprocess_fwd": 0, "launches.preprocess_bwd": 0,
     "launches.ssim_fwd": 0, "launches.ssim_bwd": 0,
+    "launches.bin_count": 0, "launches.bin_rank": 0, "launches.bin_emit": 0,
+    "launches.bin_sort": 0, "launches.bin_ranges": 0,
     "feature_loads.native": 0, "feature_loads.numpy": 0,
     "sam.encoder_passes": 0, "sam.decoder_batches": 0, "sam.prompts": 0,
     "sam.masks_kept": 0}

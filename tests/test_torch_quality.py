@@ -292,7 +292,9 @@ def test_smoke_protocol_every_stage_on_the_cpu(smoke):
     for st in ("phaseA", "phaseB", "render"):
         assert set(rep["launches"][st]) == {"blend_fwd", "blend_bwd", "segsum",
                                             "preprocess_fwd", "preprocess_bwd",
-                                            "ssim_fwd", "ssim_bwd"}
+                                            "ssim_fwd", "ssim_bwd", "bin_count",
+                                            "bin_rank", "bin_emit", "bin_sort",
+                                            "bin_ranges"}
     assert set(rep["launches"]["phaseB_levels"]) == {"1", "2", "3"}
     assert rep["device"] == "cpu"
 

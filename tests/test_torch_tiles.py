@@ -59,7 +59,17 @@ def scene_prep(n, seed, w, h, scale=1.0, spread=2.0):
     return prep, opac
 
 
-# (scene, binning arguments, what the case must exercise)
+def no_visible(prep, opac):
+    return prep._replace(visible=jnp.zeros_like(prep.visible)), opac
+
+
+def faint_every_third(prep, opac):
+    opac = opac.copy()
+    opac[::3] = 1e-3      # below ALPHA_EPS: no tile, and no rect position dropped
+    return prep, opac
+
+
+# (scene, binning arguments, what the case must exercise[, an edit of (prep, opacities)])
 CASES = {
     "culled": (dict(n=150, seed=1, w=64, h=48),
                dict(grid_x=4, grid_y=3, budget=4096, max_tiles_per_gaussian=32,
@@ -74,16 +84,44 @@ CASES = {
                            dict(grid_x=10, grid_y=8, budget=16384,
                                 max_tiles_per_gaussian=ttiles.MAX_CULL_TMAX + 32,
                                 tile_size=16), "unculled"),
+    "unculled_tail": (dict(n=60, seed=4, w=160, h=128, scale=3.0, spread=1.2),
+                      dict(grid_x=10, grid_y=8, budget=16384, max_tiles_per_gaussian=8,
+                           tile_size=16), "rect_dropped"),
+    "empty_view": (dict(n=50, seed=8, w=64, h=48),
+                   dict(grid_x=4, grid_y=3, budget=4096, max_tiles_per_gaussian=32,
+                        tile_size=16), "empty", no_visible),
+    "opacity_below_eps": (dict(n=120, seed=9, w=64, h=64),
+                          dict(grid_x=4, grid_y=4, budget=4096, max_tiles_per_gaussian=4,
+                               tile_size=16), "faint", faint_every_third),
+    # a grid wider and taller than the image's 4 x 3: the tiles past it stay empty, and
+    # the small Gaussians near the centre leave the first tile empty too
+    "empty_end_tiles": (dict(n=40, seed=10, w=64, h=48, scale=0.2, spread=0.4),
+                        dict(grid_x=6, grid_y=5, budget=4096, max_tiles_per_gaussian=32,
+                             tile_size=16), "ends_empty"),
 }
 
 
 @pytest.mark.parametrize("with_opacity", [True, False])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_bin_gaussians_matches_jax_exactly(case, with_opacity):
-    scene, kw, expect = CASES[case]
+    scene, kw, expect, *edit = CASES[case]
     prep, opac = scene_prep(**scene)
+    for fn in edit:
+        prep, opac = fn(prep, opac)
     j, t = bin_both(prep, opac if with_opacity else None, **kw)
-    if expect == "dropped":
+    if expect == "empty":
+        assert int(t.num_instances) == 0 and not t.tile_start.any()
+        assert (t.gauss_id == scene["n"]).all() and (t.presort_slot == kw["budget"]).all()
+    elif expect == "faint":
+        assert int(t.rect_dropped) > 0
+        if with_opacity:
+            counts = t.gauss_offsets[1:] - t.gauss_offsets[:-1]
+            assert not counts[::3].any() and counts.any()
+    elif expect == "ends_empty":
+        num = int(t.num_instances)
+        assert num > 0 and int(t.tile_start[1]) == 0
+        assert int(t.tile_start[-2]) == int(t.tile_start[-1]) == num
+    elif expect == "dropped":
         assert int(t.dropped) > 0 and int(t.num_instances) == kw["budget"]
     elif expect == "rect_dropped":
         assert int(t.rect_dropped) > 0
@@ -122,3 +160,22 @@ def test_tile_pass_mask_matches_jax_bits(tmax):
                                   opacities=torch.tensor(opac))
     np.testing.assert_array_equal(tmask.numpy(), bits.astype(bool))
     assert not tmask[:5].any()
+
+
+def test_cpu_tensors_launch_no_kernel():
+    """On CPU tensors bin_gaussians and instance_counts take the plain version: no
+    `launches.bin_*` counter moves, and the buffer is the plain version's."""
+    from langsplat_tpu_torch.ops import _build
+    prep, opac = scene_prep(n=60, seed=11, w=64, h=48)
+    tprep, topac = to_torch_prep(prep), torch.tensor(opac)
+    kw = dict(grid_x=4, grid_y=3, budget=4096, max_tiles_per_gaussian=32, tile_size=16)
+    before = dict(_build.LAUNCHES)
+    inst = ttiles.bin_gaussians(tprep, opacities=topac, **kw)
+    counts = ttiles.instance_counts(tprep, tile_size=16, tmax=32, opacities=topac)
+    assert dict(_build.LAUNCHES) == before
+    assert {k for k in before if k.startswith("bin_")} == {
+        "bin_count", "bin_rank", "bin_emit", "bin_sort", "bin_ranges"}
+    plain = ttiles.bin_gaussians_plain(tprep, opacities=topac, **kw)
+    for name in FIELDS:
+        assert torch.equal(getattr(inst, name), getattr(plain, name)), name
+    assert int(counts.sum()) == int(inst.num_instances) > 0
