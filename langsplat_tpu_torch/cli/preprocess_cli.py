@@ -8,8 +8,9 @@
 Reads `<scene>/images/*`, generates SAM masks at four granularities (32x32 points, one
 crop layer, IoU 0.7, stability 0.85, box NMS 0.7, regions under 100 px removed) with
 the port's SAM (`models/sam.py`, loaded from the `transformers`-layout directory
---sam_model; each crop encoded once), embeds
-each mask's 224^2 tile with CLIP and writes `<scene>/language_features/<image>_{f,s}.npy`.
+--sam_model; each crop encoded once), embeds each mask's 224^2 tile with the port's CLIP
+image tower (`models/clip.py`, loaded from the `transformers`-layout directory
+--clip_model) and writes `<scene>/language_features/<image>_{f,s}.npy`.
 It runs on the CUDA card unless --device says otherwise, and fails without a card (the
 JAX CLI defaults to the CPU).
 """
@@ -39,9 +40,9 @@ def auto_mask_config(points_per_side: int = 32):
 
 
 def main(argv=None, predictor=None, clip_encode=None):
-    """`predictor` and `clip_encode`, when given, stand in for the SAM (the port's own,
-    `models/sam.py`) and the transformers CLIP that --sam_model and --clip_model would
-    load."""
+    """`predictor` and `clip_encode`, when given, stand in for the SAM and the CLIP image
+    tower (the port's own, `models/sam.py` and `models/clip.py`) that --sam_model and
+    --clip_model would load."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--dataset_path", type=str, required=True)
     parser.add_argument("--resolution", type=int, default=-1)
@@ -58,8 +59,7 @@ def main(argv=None, predictor=None, clip_encode=None):
 
     from langsplat_tpu_torch.device import float32_matmul_highest, resolve_device
     from langsplat_tpu_torch.preprocess.auto_mask import AutoMaskGenerator
-    from langsplat_tpu_torch.preprocess.backends import (SamPredictor,
-                                                         TransformersClipImageEncoder)
+    from langsplat_tpu_torch.preprocess.backends import ClipImageEncoder, SamPredictor
     from langsplat_tpu_torch.preprocess.pipeline import create, load_scene_images
 
     device = resolve_device(args.device)
@@ -67,7 +67,7 @@ def main(argv=None, predictor=None, clip_encode=None):
     if predictor is None:
         predictor = SamPredictor(args.sam_model, device=device)
     if clip_encode is None:
-        clip_encode = TransformersClipImageEncoder(args.clip_model, device=device)
+        clip_encode = ClipImageEncoder(args.clip_model, device=device)
     generator = AutoMaskGenerator(predictor, auto_mask_config(args.points_per_side),
                                   device=device)
 

@@ -16,8 +16,9 @@ mask thresholds at logit 0 and +-1 read what TF32's 10 mantissa bits would move.
 
 Weights come from a `facebook/sam-vit-huge`-layout directory (`load_sam`: its
 `config.json` and `model.safetensors` or `pytorch_model.bin`, through `hf_key`) or from
-a seed (`random_state`). The model holds no mask prompt (`mask_downscaling`): the
-automatic mask generator prompts with single points alone.
+a seed (`random_state`, by the per-tensor rule of `seeded_state`). The model holds no
+mask prompt (`mask_downscaling`): the automatic mask generator prompts with single
+points alone.
 
 The input image is resized by `resize_bilinear_uint8`, PIL's bilinear resize of a uint8
 image (what upstream's `ResizeLongestSide` and the `transformers` processor call), bit
@@ -549,15 +550,14 @@ def _seed_of(seed: int, name: str) -> int:
     return h
 
 
-def random_state(cfg: SamConfig, seed: int, device) -> dict[str, torch.Tensor]:
-    """Seeded random weights of every tensor of `Sam(cfg)`, each drawn from its own
-    generator (seeded by `seed` and its name) as a normal draw: 1 + 0.1 N for a 1-D
-    weight (LayerNorm scales), 0.02 N for a bias, N for the Fourier matrix, 0.1 N for
-    the absolute position embedding, and N / sqrt(fan-in) (the product of the trailing
-    sizes) for the rest, the relative-position tables among them."""
+def seeded_state(shapes: dict, seed: int, device) -> dict[str, torch.Tensor]:
+    """Seeded random weights of every named tensor of `shapes` (a state dict, on the
+    meta device or any other), each drawn from its own generator (seeded by `seed` and
+    its name) as a normal draw: 1 + 0.1 N for a 1-D weight (LayerNorm scales), 0.02 N for
+    any other 1-D tensor (biases), N for the Fourier matrix, 0.1 N for an absolute
+    position embedding (a name ending in `pos_embed`), and N / sqrt(fan-in) (the product
+    of the trailing sizes) for the rest, the relative-position tables among them."""
     device = torch.device(device)
-    with torch.device("meta"):
-        shapes = Sam(cfg).state_dict()
     out = {}
     for name, t in shapes.items():
         gen = torch.Generator(device=device)
@@ -573,6 +573,13 @@ def random_state(cfg: SamConfig, seed: int, device) -> dict[str, torch.Tensor]:
             x = x / math.sqrt(math.prod(t.shape[1:]))
         out[name] = x
     return out
+
+
+def random_state(cfg: SamConfig, seed: int, device) -> dict[str, torch.Tensor]:
+    """`seeded_state` of every tensor of `Sam(cfg)`."""
+    with torch.device("meta"):
+        shapes = Sam(cfg).state_dict()
+    return seeded_state(shapes, seed, device)
 
 
 def build_sam(cfg: SamConfig = SamConfig(), seed: int | None = None, state=None,

@@ -1,9 +1,11 @@
 """SAM and CLIP backends of the preprocessing, PyTorch counterpart of
 `langsplat_tpu/preprocess/backends.py`. `SamPredictor` runs the port's own SAM
-(`models/sam.py`), built from a seed or loaded from a local `facebook/sam-vit-huge`-layout
-checkpoint directory; `TransformersSamPredictor` and the CLIP encoder load through
-`transformers` (`laion/CLIP-ViT-B-16-laion2B-s34b-b88k`-compatible). All run on the
-CUDA card unless `device` says otherwise, and their outputs stay tensors on that device.
+(`models/sam.py`) and `ClipImageEncoder` the port's own CLIP image tower
+(`models/clip.py`), each built from a seed or loaded from a local `transformers`-layout
+checkpoint directory (`facebook/sam-vit-huge`, `laion/CLIP-ViT-B-16-laion2B-s34b-b88k`).
+`TransformersSamPredictor` and `TransformersClipImageEncoder` load through
+`transformers`; the tests hold the port's models against them. All run on the CUDA card
+unless `device` says otherwise, and their outputs stay tensors on that device.
 
 Any other pair of callables works: the pipeline needs `predictor(image, points) ->
 (masks, iou_preds, logits)` and `encode(tiles) -> embeddings`. A predictor that also
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from langsplat_tpu_torch.device import resolve_device
+from langsplat_tpu_torch.models import clip as clip_model
 from langsplat_tpu_torch.models import sam as sam_model
 from langsplat_tpu_torch.utils import tracing
 
@@ -97,9 +100,39 @@ class TransformersSamPredictor:
         return logits > 0.0, out.iou_scores[0], logits
 
 
+class ClipImageEncoder:
+    """encode(tiles [M, 3, 224, 224] float in [0, 1]) -> [M, 512] image embeddings on
+    the device through the port's CLIP image tower, `batch_size` tiles a forward pass
+    (the span `clip_encoder` each; counters `clip.tiles`, `clip.encoder_batches`).
+
+    `model` is a `models.clip.ClipVision` or a checkpoint directory
+    (`models.clip.load_clip`)."""
+
+    def __init__(self, model, device=None, batch_size: int = 64):
+        self.device = resolve_device(device)
+        if isinstance(model, str):
+            model = clip_model.load_clip(model, device=self.device)
+        self.model = model
+        self.batch_size = batch_size
+        self.mean, self.std = tracing.upload("clip.normalise", [CLIP_MEAN, CLIP_STD],
+                                             device=self.device)[:, None, :, None, None]
+
+    def __call__(self, tiles) -> torch.Tensor:
+        tiles = torch.as_tensor(tiles, dtype=torch.float32, device=self.device)
+        out = []
+        for i in range(0, len(tiles), self.batch_size):
+            with tracing.span("clip_encoder"):
+                out.append(self.model.embed((tiles[i:i + self.batch_size] - self.mean)
+                                            / self.std))
+            tracing.COUNTERS["clip.encoder_batches"] += 1
+        tracing.COUNTERS["clip.tiles"] += len(tiles)
+        return torch.cat(out)
+
+
 class TransformersClipImageEncoder:
     """encode(tiles [M, 3, 224, 224] float in [0, 1]) -> [M, 512] image embeddings on
-    the device, `batch_size` tiles per forward pass."""
+    the device, `batch_size` tiles per forward pass, through `transformers`' CLIPModel.
+    The tests hold `ClipImageEncoder` against it."""
 
     def __init__(self,
                  model_name_or_path: str = "laion/CLIP-ViT-B-16-laion2B-s34b-b88k",

@@ -8,6 +8,11 @@
   - `mask_to_segmap`: crop -> pad to a square -> 224^2 CLIP tiles, and the -1-filled
     segment-id map, built on the masks' device.
 
+Tracing (`utils/tracing.py`): `masks_update` is the span `masks_update`, one `mask_nms`
+a level inside it, with the counters `mask_nms.masks` (masks in) and `mask_nms.kept`;
+every host-device sync goes through a counted `sync.mask_nms.*` or `sync.clip_tiles.*`
+span.
+
 No OpenCV: `resize_linear` is `cv2.resize(..., INTER_LINEAR)` on uint8 images written
 out as tensor operations, bit for bit. OpenCV takes 11-bit fixed-point weights from
 (d + 1/2) * scale - 1/2 (the x taps clamped to the border, the y rows clipped), sums the
@@ -20,6 +25,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from langsplat_tpu_torch.utils import tracing
 
 COEF_SCALE = 2048        # OpenCV's INTER_RESIZE_COEF_SCALE (11 fractional bits)
 TILE = 224               # CLIP's input size
@@ -50,8 +57,11 @@ def mask_nms(masks: torch.Tensor, scores, iou_thr: float = 0.7, score_thr: float
     scores = np.asarray(scores, np.float64)
     order = np.argsort(-scores, kind="stable")
     m = len(order)
-    scores_ord = torch.as_tensor(scores[order], device=masks.device)
-    flat = masks[torch.as_tensor(order, device=masks.device)].reshape(m, -1).float()
+    # the order and the sorted scores in one upload (float64 holds every index exactly)
+    ordered = tracing.upload("mask_nms.order", np.stack([order, scores[order]]),
+                             device=masks.device)
+    scores_ord = ordered[1]
+    flat = masks[ordered[0].long()].reshape(m, -1).float()
     iou, inner = mask_nms_matrices(flat)
     del flat
 
@@ -64,13 +74,16 @@ def mask_nms(masks: torch.Tensor, scores, iou_thr: float = 0.7, score_thr: float
     keep_inner_u = inner_max_u <= 1 - inner_thr
     keep_inner_l = inner_max_l <= 1 - inner_thr
     # the scores are sorted (stable), so the top 3 are the first 3
-    for k in (keep_conf, keep_inner_u, keep_inner_l):
-        if not bool(k.any()):
+    for name, k in (("conf", keep_conf), ("inner_u", keep_inner_u),
+                    ("inner_l", keep_inner_l)):
+        if not tracing.host_read(f"mask_nms.{name}", k.any()):
             k[:3] = True
     keep = keep & keep_conf & keep_inner_u & keep_inner_l
-    return order[keep.cpu().numpy()]
+    with tracing.synced("mask_nms.keep"):
+        return order[keep.cpu().numpy()]
 
 
+@tracing.traced("masks_update")
 def masks_update(*mask_lists, iou_thr: float = 0.8, score_thr: float = 0.7,
                  inner_thr: float = 0.5):
     """NMS per granularity level on stability * predicted-IoU scores."""
@@ -82,8 +95,11 @@ def masks_update(*mask_lists, iou_thr: float = 0.8, score_thr: float = 0.7,
         seg = torch.stack([m["segmentation"] for m in masks_lvl])
         iou_pred = np.array([m["predicted_iou"] for m in masks_lvl])
         stability = np.array([m["stability_score"] for m in masks_lvl])
-        keep = set(mask_nms(seg, stability * iou_pred, iou_thr=iou_thr,
-                            score_thr=score_thr, inner_thr=inner_thr).tolist())
+        with tracing.span("mask_nms"):
+            keep = set(mask_nms(seg, stability * iou_pred, iou_thr=iou_thr,
+                                score_thr=score_thr, inner_thr=inner_thr).tolist())
+        tracing.COUNTERS["mask_nms.masks"] += len(masks_lvl)
+        tracing.COUNTERS["mask_nms.kept"] += len(keep)
         out.append([m for i, m in enumerate(masks_lvl) if i in keep])
     return tuple(out)
 
@@ -158,12 +174,13 @@ def pad_img(img: torch.Tensor) -> torch.Tensor:
     return pad
 
 
-def _tiles(image: torch.Tensor, segs: torch.Tensor, boxes: np.ndarray) -> torch.Tensor:
+def _tiles(image: torch.Tensor, segs: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """[M, 224, 224, 3] uint8: `resize_linear(pad_img(get_seg_img(...)), 224, 224)` of
-    every mask at once, gathered straight from the image (no crop is materialized)."""
+    every mask at once, gathered straight from the image (no crop is materialized).
+    `boxes` [M, 4] int64 XYWH on the image's device."""
     dev = image.device
     height, width = image.shape[:2]
-    x, y, w, h = (torch.as_tensor(c, device=dev).long() for c in np.int32(boxes).T)
+    x, y, w, h = boxes.T
     side = torch.maximum(w, h)
     off_x = torch.where(h > w, (h - w) // 2, 0)
     off_y = torch.where(h > w, 0, (w - h) // 2)
@@ -197,12 +214,14 @@ def mask_to_segmap(masks: list[dict], image: torch.Tensor, chunk: int = 64
     for the background, a later mask overwriting an earlier one), on the image's
     device. `image` is [H, W, 3] uint8."""
     segs = torch.stack([m["segmentation"] for m in masks]).to(image.device)
-    boxes = np.stack([m["bbox"] for m in masks])
+    boxes = np.int32(np.stack([m["bbox"] for m in masks]))
+    boxes = tracing.upload("clip_tiles.boxes", boxes, dtype=torch.int64, device=image.device)
     tiles = torch.cat([_tiles(image, segs[i:i + chunk], boxes[i:i + chunk])
                        for i in range(0, len(masks), chunk)])
-    # uint8 -> [0, 1] by a table of x / 255 rounded once, as numpy does: the card's
-    # division by a scalar multiplies by its reciprocal and can round otherwise
-    unit = (torch.arange(256, dtype=torch.float32) / 255.0).to(image.device)
+    # uint8 -> [0, 1] by a table of x / 255 rounded once, on the host as numpy does: the
+    # card's division by a scalar multiplies by its reciprocal and can round otherwise
+    unit = tracing.upload("clip_tiles.unit", np.arange(256, dtype=np.float32)
+                          / np.float32(255), device=image.device)
     tiles = unit[tiles.long()].permute(0, 3, 1, 2).contiguous()
     ids = torch.arange(1, len(masks) + 1, dtype=torch.int32, device=image.device)
     seg_map = torch.zeros(image.shape[:2], dtype=torch.int32, device=image.device)

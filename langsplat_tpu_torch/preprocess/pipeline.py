@@ -1,13 +1,16 @@
 """Language-feature extraction (`process.sh` step 1), PyTorch counterpart of
-`langsplat_tpu/preprocess/pipeline.py`: per image, SAM masks at four granularities,
-`masks_update` (IoU 0.8, score 0.7, inner 0.5), a 224^2 CLIP tile per mask, CLIP
-embeddings L2-normalized and stored as float16, and the files the training and the
-autoencoder read: `<image>_f.npy` [M, 512] and `<image>_s.npy` [4, H, W] int32 seg maps
-whose ids carry cumulative offsets per level (-1 for no mask).
+`langsplat_tpu/preprocess/pipeline.py`: per image, SAM masks at four granularities
+(`generate`), then `embed_masks`: `masks_update` (IoU 0.8, score 0.7, inner 0.5), a
+224^2 CLIP tile per mask, CLIP embeddings L2-normalized and stored as float16, and the
+files the training and the autoencoder read: `<image>_f.npy` [M, 512] and
+`<image>_s.npy` [4, H, W] int32 seg maps whose ids carry cumulative offsets per level
+(-1 for no mask).
 
 The mask generator and the image encoder are injected (see backends.py); the masks,
-tiles, seg maps and embeddings stay on the generator's device until the files are
-written.
+tiles, seg maps and embeddings stay on the masks' device until the files are written.
+Tracing (`utils/tracing.py`): the root span `embed_masks` a call, holding
+`masks_update` (`mask_nms` a level), `clip_tiles` a level and the encoder's own spans
+(`clip_encoder` a batch for `backends.ClipImageEncoder`).
 """
 
 from __future__ import annotations
@@ -20,25 +23,37 @@ import torch
 
 from langsplat_tpu_torch.device import resolve_device
 from langsplat_tpu_torch.preprocess.masks import mask_to_segmap, masks_update, resize_linear
+from langsplat_tpu_torch.utils import tracing
 
 LEVELS = ("default", "s", "m", "l")
 
 
 def embed_image(image: np.ndarray, mask_generator, clip_encode: Callable,
                 levels=LEVELS) -> tuple[dict, dict]:
-    """One [H, W, 3] uint8 image -> ({level: [Mi, D] float16 embeddings}, {level:
-    [H, W] int32 seg map}), tensors on the generator's device. Levels without masks
+    """One [H, W, 3] uint8 image -> `embed_masks` of the generator's masks."""
+    return embed_masks(image, mask_generator.generate(image), clip_encode, levels)
+
+
+@tracing.traced("embed_masks")
+def embed_masks(image: np.ndarray, masks_4, clip_encode: Callable,
+                levels=LEVELS) -> tuple[dict, dict]:
+    """One [H, W, 3] uint8 image and its mask records at four levels, as
+    `AutoMaskGenerator.generate` gives them -> ({level: [Mi, D] float16 embeddings},
+    {level: [H, W] int32 seg map}), tensors on the masks' device. Levels without masks
     are left out; the default level must have some."""
-    masks_4 = mask_generator.generate(image)
+    if not masks_4[0]:
+        raise ValueError("no masks at the default level")
+    device = masks_4[0][0]["segmentation"].device
     masks_4 = masks_update(*masks_4, iou_thr=0.8, score_thr=0.7, inner_thr=0.5)
-    img = torch.as_tensor(image, device=mask_generator.device)
+    img = tracing.upload("embed_masks.image", np.ascontiguousarray(image), device=device)
     embeds, seg_maps = {}, {}
     for level, masks_lvl in zip(levels, masks_4):
         if len(masks_lvl) == 0:
             if level == "default":
                 raise ValueError("no masks at the default level")
             continue
-        tiles, seg_map = mask_to_segmap(masks_lvl, img)
+        with tracing.span("clip_tiles"):
+            tiles, seg_map = mask_to_segmap(masks_lvl, img)
         emb = torch.as_tensor(clip_encode(tiles), device=img.device)
         emb = emb / (torch.linalg.norm(emb, dim=-1, keepdim=True) + 1e-12)
         embeds[level] = emb.half()

@@ -14,6 +14,9 @@ incremented where the work happens.
   passes, mask-decoder calls and the point prompts they decode
   (`preprocess/backends.py SamPredictor`); `sam.masks_kept`: the masks
   `preprocess/auto_mask.py AutoMaskGenerator.generate` returns.
+- `mask_nms.masks`, `mask_nms.kept`: the masks `preprocess/masks.py masks_update` takes
+  and keeps; `clip.tiles`, `clip.encoder_batches`: the tiles CLIP's image tower encodes
+  and its forward passes (`preprocess/backends.py ClipImageEncoder`).
 
 **Spans** are on while a `torch.profiler` records (`torch.autograd._profiler_enabled()`),
 and only then: the operator's `--profile_dir` window (`train/loop.py TraceWindow`) or a
@@ -60,7 +63,8 @@ COUNTERS: dict[str, int] = {
     "launches.bin_sort": 0, "launches.bin_ranges": 0,
     "feature_loads.native": 0, "feature_loads.numpy": 0,
     "sam.encoder_passes": 0, "sam.decoder_batches": 0, "sam.prompts": 0,
-    "sam.masks_kept": 0}
+    "sam.masks_kept": 0, "mask_nms.masks": 0, "mask_nms.kept": 0, "clip.tiles": 0,
+    "clip.encoder_batches": 0}
 
 
 class CounterView(MutableMapping):

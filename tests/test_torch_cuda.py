@@ -1469,5 +1469,46 @@ def test_every_sync_of_the_mask_generator_is_counted(cuda_device):
     assert moved["sam.masks_kept"] > 0
     assert len(sites) == moved["host_syncs"] >= 5 * 2 + 10 * 2, sites
 
+
+@pytest.mark.cuda
+def test_every_sync_of_embed_masks_is_counted(cuda_device):
+    """Every synchronizing operation that torch.cuda.set_sync_debug_mode("warn") sees
+    in one `embed_masks` of the benchmark's seeded masks at its tiny size
+    (`bench_port/tests/tiny_clip.json`) through `ClipImageEncoder` is one increment of
+    `host_syncs`: the image's upload, 5 a level in the mask NMS (the order's upload,
+    three fallback reads, the keep read) and 2 a level in the tiles (the boxes' and the
+    unit table's uploads)."""
+    import json
+    from bench_port.drivers.embed import clip_config, view_masks
+    from bench_port.drivers.preprocess import views_of
+    from langsplat_tpu_torch.models.clip import build_clip
+    from langsplat_tpu_torch.preprocess.backends import ClipImageEncoder
+    from langsplat_tpu_torch.preprocess.pipeline import embed_masks
+    from langsplat_tpu_torch.utils.tracing import COUNTERS
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "bench_port" / "tests"
+                      / "tiny_clip.json").read_text())
+    seed = 2**31 + 313
+    levels = view_masks(cfg, seed, 0, cuda_device)
+    image = views_of(cfg, seed, cuda_device)[0]
+    encoder = ClipImageEncoder(build_clip(clip_config(cfg), seed=seed, device=cuda_device),
+                               cuda_device, cfg["batch_size"])
+    embed_masks(image, levels, encoder)
+    before = dict(COUNTERS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            embeds, _ = embed_masks(image, levels, encoder)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    moved = {k: COUNTERS[k] - before[k] for k in COUNTERS}
+    print(f"embed_masks: {len(sites)} syncs warned of, {moved['host_syncs']} counted, "
+          f"{moved['clip.tiles']} tiles; sites {sorted(set(sites))}")
+    assert len(embeds) == 4 and moved["clip.tiles"] == sum(len(e) for e in embeds.values())
+    assert len(sites) == moved["host_syncs"] == 1 + 4 * 5 + 4 * 2, sites
+
 if __name__ == "__main__":
     torch.save(globals()[sys.argv[1]](torch.device("cuda")), sys.argv[2])
