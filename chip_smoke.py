@@ -10,8 +10,8 @@ times both paths.
 Phases (any failure ends the run with a non-zero exit):
   1. the device: name, count, and `nvidia-smi` name and power limit;
   2. the kernels (csrc/blend_fwd.cu, blend_bwd.cu, segsum.cu, preprocess.cu, ssim.cu,
-     binning.cu) are built with nvcc, one process per source, all started together, then each is
-     compared with its plain version at small odd sizes: the blend forward and backward
+     binning.cu, adam.cu) are built with nvcc, one process per source, all started
+     together, then each but Adam's is compared with its plain version at small odd sizes: the blend forward and backward
      with F = 0 and 3 and both grad modes, the segment sum with segments longer than 32
      (the forward kernel, wherever it is compared, also twice with itself, bit for bit),
      projection and SH at SH degrees 0-4 and with precomputed covariances and colours
@@ -35,7 +35,11 @@ Phases (any failure ends the run with a non-zero exit):
      version's and the bytes bound, the launches of each entry point); the projection and
      SH kernels forward and backward on phase 3's 1M-Gaussian field against the plain
      version and autograd (checked as in phase 2), with their times, the plain
-     version's and their bytes bounds;
+     version's and their bytes bounds; Adam (csrc/adam.cu, `adam_check`) on that
+     field's phase-A and phase-B leaves and one step's gradients on view 0 (f_dc's and
+     f_rest's as autograd's slices): new params, mu, nu and counts bit-equal to the
+     plain update's, one launch, the inputs unchanged, with the kernel's device ms, the
+     plain update's, torch._fused_adam_'s and the bytes bound;
   4b. the overflow path: `render_full` of view 0 (features) from an eighth of the
      instance budget that view needs and a tile cap of 2, each attempt's budget, tile
      cap and drops logged; the launch counters are zeroed just before and read just
@@ -147,9 +151,9 @@ Phases (any failure ends the run with a non-zero exit):
      0.05 with localization 1.0 (a floor, not a band: the oracle follows the AE's
      training run, which rounding steers, ROADMAP F4); the trained field's mIoU above
      half the oracle's; and the report must hold every key of QUALITY_r04.json.
-The launch counters are zeroed before, and read after, each path (phases 3, 4b, 5 A and
-B, 8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward, each stage
-of 13; phase 12's ranks are fresh processes, whose counts start at zero). The line
+The launch counters are zeroed before, and read after, each path (phases 3, 4's Adam,
+4b, 5 A and B, 8, 9's render and eval, 10, 11a A and B, 11b, 11d's render and backward,
+each stage of 13; phase 12's ranks are fresh processes, whose counts start at zero). The line
 before the last is the `kernels` JSON; the last line is the result JSON.
 It needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -201,7 +205,7 @@ TRAIN_STEPS = 20
 # 6 instances per Gaussian of capacity, at which the training loop refuses to truncate.
 BUDGET_FLAGS = ["--budget_factor", "24"]
 SOURCES = ["blend_fwd.cu", "blend_bwd.cu", "segsum.cu", "preprocess.cu", "ssim.cu",
-           "binning.cu"]
+           "binning.cu", "adam.cu"]
 PREP_ULPS = 4         # projection and SH kernel's float outputs vs plain, in float32 ulps
 PREP_TOL = 1e-5       # its gradients vs autograd of plain, relative to each leaf's norm
 SSIM_MEAN_TOL = 1e-6  # SSIM kernels' mean vs plain, relative (summation order)
@@ -835,6 +839,109 @@ def binning_check(prep, opac, settings) -> dict:
                 plain_wall_ms=plain["wall_ms_per_call"],
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
                 top_kernels_ms=kernels["top_kernels_ms_per_call"])
+
+
+def adam_grads(field, settings, mats, device, feature: bool) -> tuple[dict, dict]:
+    """One training step's parameters and gradients on `field` at one view, as the
+    step takes them: phase A's six groups from the RGB loss (autograd hands f_dc's and
+    f_rest's gradients out as slices of the features' concatenation's), phase B's
+    language features from the masked L1, each against a target from a fixed seed."""
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in trainer.extract_params(field, feature).items()}
+    out = render(trainer.merge_params(field, params), settings, *mats,
+                 torch.zeros(3, device=device))
+    gt = torch.rand((3, HEIGHT, WIDTH), device=device,
+                    generator=torch.Generator(device=device).manual_seed(5))
+    if feature:
+        loss = losses.masked_l1_loss(out["language_feature_image"], gt,
+                                     torch.ones((1, HEIGHT, WIDTH), device=device))
+    else:
+        loss = losses.rgb_loss(out["render"], gt)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {k: v.detach() for k, v in params.items()}, dict(zip(params, grads))
+
+
+def fused_adam_ms(grads: dict, state: dict, params: dict, lrs: dict) -> float:
+    """Device ms of an update by `torch._fused_adam_`, the kernel of
+    torch.optim.Adam(fused=True): one call a group at its learning rate, in place on
+    contiguous copies of the leaves (it takes leaves of one layout)."""
+    def copy(t):
+        return [t.clone(memory_format=torch.contiguous_format)]
+
+    copies = {k: (copy(params[k]), copy(grads[k]), copy(state[k]["mu"]),
+                  copy(state[k]["nu"]), [], [torch.ones((), device=params[k].device)])
+              for k in lrs}
+
+    def update():
+        for k, leaves in copies.items():
+            torch._fused_adam_(*leaves, lr=lrs[k], beta1=trainer.B1, beta2=trainer.B2,
+                               weight_decay=0.0, eps=trainer.EPS, amsgrad=False,
+                               maximize=False)
+
+    return profile_render(update, reps=20, host_events=False)["device_ms_per_call"]
+
+
+def adam_check(field, runs, device) -> dict:
+    """Adam (csrc/adam.cu) on the training step's own leaves at `field`'s capacity:
+    phase A's six groups and phase B's one, gradients from one step on view 0
+    (`adam_grads`), moments from one plain update before. The kernel's update
+    (`Adam.update`) against the plain one (`update_plain`) on the same tensors: new
+    params, mu, nu, count and sched_count bit-equal, the inputs left as they were, one
+    launch. Then the kernel's device ms (torch.profiler; the whole update's beside it,
+    with the xyz schedule's scalar kernels), the plain version's, the library's
+    (`fused_adam_ms`) and the bytes bound: param, grad, mu and nu read and param, mu and
+    nu written, 28 B an element. The launch counters are zeroed first; `launches` reads
+    them at the end."""
+    zero_launches()
+    out = {}
+    for phase, feature in (("A", False), ("B", True)):
+        settings, mats = runs[feature][:2]
+        opt = trainer.make_optimizer(OptimizationConfig(), 1.0, feature)
+        params, grads = adam_grads(field, settings, mats, device, feature)
+        _, state = opt.update_plain(grads, opt.init(params), params)
+
+        def leaves():
+            return [*params.values(), *grads.values(),
+                    *(v for s in state.values() for v in s.values())]
+
+        before = [t.clone() for t in leaves()]
+        want_p, want_s = opt.update_plain(grads, state, params)
+        launched = _build.LAUNCHES["adam_update"]
+        got_p, got_s = opt.update(grads, state, params)
+        torch.cuda.synchronize()
+        launched = _build.LAUNCHES["adam_update"] - launched
+        unequal = [f"{k} param" for k in want_p if not torch.equal(got_p[k], want_p[k])]
+        unequal += [f"{k} {leaf}" for k, s in want_s.items() for leaf in s
+                    if not (got_s[k][leaf].dtype == s[leaf].dtype
+                            and torch.equal(got_s[k][leaf], s[leaf]))]
+        changed = not all(torch.equal(a, b) for a, b in zip(before, leaves()))
+        if unequal or changed or launched != 1 or got_s.keys() != want_s.keys():
+            raise RuntimeError(f"phase 4 (Adam, {phase}): the kernel's update differs "
+                               f"from the plain version's in {unequal}, inputs changed "
+                               f"{changed}, launches {launched}")
+        del before, want_p, want_s, got_p, got_s
+        n = sum(p.numel() for p in params.values())
+        update = profile_render(lambda: opt.update(grads, state, params), reps=20,
+                                host_events=False)
+        ms = sum(t for k, t in update["top_kernels_ms_per_call"] if "adam_kernel" in k)
+        if not ms > 0:
+            raise RuntimeError(f"phase 4 (Adam, {phase}): no adam_kernel in the trace: "
+                               f"{update['top_kernels_ms_per_call']}")
+        lrs = dict(opt.lrs, **{k: float(f(state[k]["sched_count"]))
+                               for k, f in opt.schedules.items()})
+        out[phase] = dict(
+            groups=len(opt.labels), elements=n,
+            strided=sorted(k for k, g in grads.items() if not g.is_contiguous()),
+            bit_equal=True, launches_a_call=launched, ms=ms,
+            update_ms=update["device_ms_per_call"],
+            call_ms=cuda_ms(lambda: opt.update(grads, state, params), reps=20),
+            plain_ms=cuda_ms(lambda: opt.update_plain(grads, state, params), reps=5),
+            library_ms=fused_adam_ms(grads, state, params, lrs),
+            bound_ms=28 * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            top_kernels_ms=update["top_kernels_ms_per_call"])
+        del params, grads, state
+    out["launches"] = dict(_build.LAUNCHES)
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1934,7 +2041,7 @@ KERNEL_SYMBOLS = {"blend_fwd": "blend_fwd_kernel", "blend_bwd": "blend_bwd_kerne
                   "preprocess_bwd": "preprocess_bwd_kernel",
                   "ssim_fwd": "ssim_fwd_kernel", "ssim_bwd": "ssim_bwd_kernel",
                   "bin_count": "binning_count_kernel", "bin_emit": "binning_emit_kernel",
-                  "bin_ranges": "binning_ranges_kernel"}
+                  "bin_ranges": "binning_ranges_kernel", "adam_update": "adam_kernel"}
 # binning's entry points (csrc/binning.cu); bin_rank and bin_sort launch a radix sort's
 # three kernels a pass, as many passes as the key has bytes, so the trace check above
 # holds their counters to no symbol
@@ -2922,6 +3029,8 @@ def main() -> int:
         prep_full = preprocess_full_width(gpu_field, cam, device)
         log("phase 4 (projection and SH, 1M Gaussians, SH 3): " + json.dumps(prep_full))
         check_preprocess("phase 4", prep_full)
+        adam_res = adam_check(gpu_field, runs, device)
+        log("phase 4 (Adam, 1M Gaussians, phase A and B leaves): " + json.dumps(adam_res))
         # 4b. the overflow path: render_full's retries from an eighth of the budget
         overflow = overflow_phase(gpu_field, cam, pipe, device,
                                   int(runs[True][3].num_instances))
@@ -3034,8 +3143,10 @@ def main() -> int:
 
     feat = timings["features"]
     ta, tb = train_timings["A"], train_timings["B"]
+    adam_a, adam_b = adam_res["A"], adam_res["B"]
     # launches on each path, each counted from zero just before the path ran
-    paths = {"render": render_launches, "overflow": overflow["launches"],
+    paths = {"render": render_launches, "adam_check": adam_res["launches"],
+             "overflow": overflow["launches"],
              "train_A": train_logs["A"]["launches"],
              "train_B": train_logs["B"]["launches"],
              "trace_A": surface["trace"]["A"]["launches"],
@@ -3137,6 +3248,17 @@ def main() -> int:
              train_ms=[ta["binning"]["ms"], tb["binning"]["ms"]],
              train_plain_ms=[ta["binning"]["plain_ms"], tb["binning"]["plain_ms"]],
              train_bound_ms=[ta["binning"]["bound_ms"], tb["binning"]["bound_ms"]]),
+        dict(name="adam_update", route="cuda", source="langsplat_tpu_torch/csrc/adam.cu",
+             replaces="none: optax.adam under XLA in langsplat_tpu/train/trainer.py",
+             launches=launches["adam_update"], launches_by_path=by_path["adam_update"],
+             bit_equal=True, ms=adam_a["ms"], plain_ms=adam_a["plain_ms"],
+             bound_ms=adam_a["bound_ms"], bound_by="bytes",
+             library_ms=adam_a["library_ms"], tol=0,
+             tol_of="params, mu, nu and counts exact", elements=adam_a["elements"],
+             strided=adam_a["strided"], update_ms=adam_a["update_ms"],
+             feature_ms=adam_b["ms"], feature_plain_ms=adam_b["plain_ms"],
+             feature_bound_ms=adam_b["bound_ms"],
+             feature_library_ms=adam_b["library_ms"]),
     ]
     log("training path launches: " + json.dumps(
         {ph: train_logs[ph]["launches"] for ph in train_logs}))

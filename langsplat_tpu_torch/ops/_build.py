@@ -31,10 +31,10 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-#: flags of one source beyond NVCC_FLAGS: preprocess.cu, ssim.cu and binning.cu round
-#: every + and * alone, as the plain PyTorch versions' elementwise kernels do
+#: flags of one source beyond NVCC_FLAGS: preprocess.cu, ssim.cu, binning.cu and adam.cu
+#: round every + and * alone, as the plain PyTorch versions' elementwise kernels do
 SOURCE_FLAGS = {"preprocess.cu": ("--fmad=false",), "ssim.cu": ("--fmad=false",),
-                "binning.cu": ("--fmad=false",)}
+                "binning.cu": ("--fmad=false",), "adam.cu": ("--fmad=false",)}
 
 #: kernel name -> launches through its wrapper since the last reset
 LAUNCHES = tracing.CounterView("launches.")

@@ -16,6 +16,12 @@ place: they return a new field, optimizer state and statistics and leave their i
 as they were, so the loop can drop a step whose render overflowed its caps and re-run
 it, as the JAX loop does.
 
+Adam dispatches by device, as `core/losses.py ssim` does: CPU tensors take the plain
+version (`Adam.update_plain`: foreach operations a group); CUDA tensors take one launch
+of `csrc/adam.cu` over every group (`adam_update_cuda`), which repeats the plain
+version's float32 operations in their order, so its outputs are bit-equal to it on the
+card; anything the kernel does not take raises.
+
 Spans (`utils/tracing.py`): `train_step`, and inside it `render` (ops/render.py),
 `loss`, `backward` (the `torch.autograd.grad` call), `optimizer` (`Adam.update`) and,
 in phase A, `stats` (the densification statistics and the PSNR).
@@ -23,6 +29,7 @@ in phase A, `stats` (the densification statistics and the PSNR).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import replace
 from typing import NamedTuple
@@ -32,6 +39,7 @@ import torch
 
 from langsplat_tpu_torch.core import losses
 from langsplat_tpu_torch.models.gaussian_field import GaussianField
+from langsplat_tpu_torch.ops import _build
 from langsplat_tpu_torch.ops.render import RenderSettings, render
 from langsplat_tpu_torch.train.densify import DensifyStats, update_stats
 from langsplat_tpu_torch.utils import tracing
@@ -115,7 +123,17 @@ class Adam:
         return state
 
     def update(self, grads: dict, state: dict, params: dict) -> tuple[dict, dict]:
-        """(new params, new state); the inputs are left as they were."""
+        """(new params, new state); the inputs are left as they were. CPU tensors take
+        `update_plain`; CUDA tensors one launch of the kernel (`adam_update_cuda`), after
+        the schedules' own scalar operations."""
+        if params[self.labels[0]].device.type == "cpu":
+            return self.update_plain(grads, state, params)
+        rates = {label: schedule(state[label]["sched_count"])
+                 for label, schedule in self.schedules.items()}
+        return adam_update_cuda(grads, state, params, self.lrs, rates)
+
+    def update_plain(self, grads: dict, state: dict, params: dict) -> tuple[dict, dict]:
+        """`update` as foreach operations a group, on any device."""
         new_params, new_state = dict(params), {}
         for label in self.labels:
             s = state[label]
@@ -131,6 +149,87 @@ class Adam:
             new_params[label] = params[label] + step
             new_state[label] = ns
         return new_params, new_state
+
+
+#: the most groups one launch of csrc/adam.cu takes (its kMaxGroups)
+ADAM_MAX_GROUPS = 8
+
+
+class _AdamGroup(ctypes.Structure):
+    """One group of `adam_update`, laid out as csrc/adam.cu's AdamGroup."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "param", "grad", "mu", "nu", "param_out", "mu_out", "nu_out", "count",
+        "count_out", "sched_count", "sched_count_out", "rate")]
+        + [("n", ctypes.c_longlong), ("row", ctypes.c_longlong),
+           ("stride", ctypes.c_longlong * 4), ("neg_lr", ctypes.c_float)])
+
+
+_ADAM = _build.Kernel("adam.cu", "adam_update",
+                      [ctypes.POINTER(_AdamGroup), ctypes.c_int] + [ctypes.c_float] * 5)
+
+
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """Whether each row t[i] of `t` is contiguous (rows at any stride)."""
+    return t.is_contiguous() or t.shape[0] == 0 or t[0].is_contiguous()
+
+
+def adam_update_cuda(grads: dict, state: dict, params: dict, lrs: dict, rates: dict,
+                     out: dict | None = None) -> tuple[dict, dict]:
+    """`Adam.update` in one launch of csrc/adam.cu: groups `lrs` (label -> constant
+    learning rate) and `rates` (label -> the schedule's float32 rate, a scalar on the
+    device), in label order, at most ADAM_MAX_GROUPS of them. The kernel reads a leaf
+    whose rows are each contiguous at its row stride (a gradient sliced from a
+    concatenation's, a shard's column block); any other leaf (phase B's feature
+    gradient, which autograd hands out column-major) through a contiguous copy. The
+    outputs are new tensors, or those of `out` ({label: {"param", "mu", "nu", "count"[,
+    "sched_count"]}}, contiguous). Returns (new params, new state); the inputs are left
+    as they were."""
+    labels = sorted([*lrs, *rates])
+    if len(labels) > ADAM_MAX_GROUPS:
+        raise ValueError(f"{len(labels)} parameter groups, at most {ADAM_MAX_GROUPS}")
+    device = params[labels[0]].device
+    new_params, new_state, groups, keep = dict(params), {}, [], []
+    for label in labels:
+        s = state[label]
+        p, g, mu, nu = (t if _rows_contiguous(t) else t.contiguous()
+                        for t in (params[label], grads[label], s["mu"], s["nu"]))
+        counts = ("count", "sched_count") if label in rates else ("count",)
+        for name, t in (("param", p), ("grad", g), ("mu", mu), ("nu", nu)):
+            _build.check(f"{label} {name}", t, torch.float32, p.shape, device,
+                         contiguous=False)
+        for k in counts:
+            _build.check(f"{label} {k}", s[k], torch.int32, (), device)
+        if out is None:
+            o = dict(param=torch.empty_like(p, memory_format=torch.contiguous_format),
+                     mu=torch.empty_like(mu, memory_format=torch.contiguous_format),
+                     nu=torch.empty_like(nu, memory_format=torch.contiguous_format),
+                     **{k: torch.empty((), dtype=torch.int32, device=device)
+                        for k in counts})
+        else:
+            o = out[label]
+            for name in ("param", "mu", "nu"):
+                _build.check(f"{label} {name} out", o[name], torch.float32, p.shape,
+                             device)
+            for k in counts:
+                _build.check(f"{label} {k} out", o[k], torch.int32, (), device)
+        rate = rates.get(label)
+        if rate is not None:
+            _build.check(f"{label} rate", rate, torch.float32, (), device)
+        sched = (s["sched_count"].data_ptr(), o["sched_count"].data_ptr()) \
+            if rate is not None else (None, None)
+        groups.append(_AdamGroup(
+            p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+            o["param"].data_ptr(), o["mu"].data_ptr(), o["nu"].data_ptr(),
+            s["count"].data_ptr(), o["count"].data_ptr(), *sched,
+            None if rate is None else rate.data_ptr(), p.numel(), math.prod(p.shape[1:]),
+            tuple(t.stride(0) if t.dim() else 1 for t in (p, g, mu, nu)),
+            -lrs[label] if rate is None else 0.0))
+        keep += [p, g, mu, nu]     # the copies live until the launch is queued
+        new_params[label] = o["param"]
+        new_state[label] = {k: o[k] for k in (*counts[:1], "mu", "nu", *counts[1:])}
+    _ADAM(device, (_AdamGroup * len(groups))(*groups), len(groups), B1, 1 - B1, B2,
+          1 - B2, EPS)
+    return new_params, new_state
 
 
 def make_optimizer(cfg, spatial_lr_scale: float, include_feature: bool) -> Adam:

@@ -60,7 +60,7 @@ COUNTERS: dict[str, int] = {
     "launches.preprocess_fwd": 0, "launches.preprocess_bwd": 0,
     "launches.ssim_fwd": 0, "launches.ssim_bwd": 0,
     "launches.bin_count": 0, "launches.bin_rank": 0, "launches.bin_emit": 0,
-    "launches.bin_sort": 0, "launches.bin_ranges": 0,
+    "launches.bin_sort": 0, "launches.bin_ranges": 0, "launches.adam_update": 0,
     "feature_loads.native": 0, "feature_loads.numpy": 0,
     "sam.encoder_passes": 0, "sam.decoder_batches": 0, "sam.prompts": 0,
     "sam.masks_kept": 0, "mask_nms.masks": 0, "mask_nms.kept": 0, "clip.tiles": 0,

@@ -1,7 +1,7 @@
 """PyTorch port on the card: the CUDA kernels (blend forward, blend backward, segment
-sum, projection and SH forward and backward, SSIM forward and backward, binning) against
-their plain PyTorch versions, and the whole render and one training step of each phase
-on the card against the same on the CPU.
+sum, projection and SH forward and backward, SSIM forward and backward, binning, Adam)
+against their plain PyTorch versions, and the whole render and one training step of each
+phase on the card against the same on the CPU.
 
 Every test here needs a CUDA device; each one decides that in the `cuda_device` fixture
 and skips without one. This file imports only torch, numpy, the port and (for the
@@ -1509,6 +1509,170 @@ def test_every_sync_of_embed_masks_is_counted(cuda_device):
           f"{moved['clip.tiles']} tiles; sites {sorted(set(sites))}")
     assert len(embeds) == 4 and moved["clip.tiles"] == sum(len(e) for e in embeds.values())
     assert len(sites) == moved["host_syncs"] == 1 + 4 * 5 + 4 * 2, sites
+
+
+# ---------------------------------------------------------------------------
+# Adam: the kernel of csrc/adam.cu against the plain per-group version
+# ---------------------------------------------------------------------------
+
+#: rgb_<cap>: phase A's six groups (1,003: float4s and a scalar tail); feature: phase
+#: B's one group; zeroed: moments partly zeroed by `zero_moment_rows`; cat_grads: the
+#: f_dc and f_rest gradients as autograd hands them out, slices of one [cap, 16, 3]
+#: tensor; shard: rank 1 of 3 of a ZeRO-2 layout (params and gradients as the strided
+#: column views of `data_parallel.unflat_rows`, rows off 16-byte alignment);
+#: xyz_count_<c>: every count, and the schedule's, at c
+ADAM_CASES = ("rgb_200", "rgb_1003", "feature", "feature_colmajor", "zeroed",
+              "cat_grads", "shard", "xyz_count_0", "xyz_count_1", "xyz_count_7",
+              "xyz_count_29999")
+ADAM_WIDTHS = {"xyz": (3,), "f_dc": (1, 3), "f_rest": (15, 3), "scaling": (3,),
+               "rotation": (4,), "opacity": (1,), "language_feature": (3,)}
+
+
+def adam_case(name: str, device, seed: int = 0):
+    """(optimizer, grads, state, params) of one of ADAM_CASES, drawn from `seed`."""
+    from langsplat_tpu_torch.config import OptimizationConfig
+    from langsplat_tpu_torch.parallel.data_parallel import flat_rows, unflat_rows
+    from langsplat_tpu_torch.train import trainer
+    rng = np.random.default_rng(seed)
+    feature = name.startswith("feature")
+    cap = {"rgb_1003": 1003, "shard": 1002}.get(name, 200)
+    optimizer = trainer.make_optimizer(OptimizationConfig(), 2.5, feature)
+
+    def draw(scale, label, positive=False):
+        x = scale * rng.normal(size=(cap, *ADAM_WIDTHS[label]))
+        return torch.tensor((np.abs(x) if positive else x).astype(np.float32),
+                            device=device)
+
+    count = int(name.rsplit("_", 1)[1]) if name.startswith("xyz_count") else 3
+    params = {k: draw(1.0, k) for k in optimizer.labels}
+    grads = {k: draw(10.0 ** rng.integers(-6, 0), k) for k in optimizer.labels}
+    state = optimizer.init(params)
+    for k, s in state.items():
+        s.update(mu=draw(1e-3, k), nu=draw(1e-6, k, positive=True))
+        for c in ("count", "sched_count"):
+            if c in s:
+                s[c] = torch.tensor(count, dtype=torch.int32, device=device)
+    if name == "zeroed":
+        mask = torch.tensor(rng.uniform(size=cap) < 0.3, device=device)
+        state = trainer.zero_moment_rows(state, mask)
+        state = trainer.zero_moment_rows(state, torch.ones(cap, dtype=torch.bool,
+                                                           device=device),
+                                         only_label="opacity")
+    if name == "feature_colmajor":   # as autograd hands out phase B's on the card
+        grads["language_feature"] = grads["language_feature"].t().contiguous().t()
+    if name == "cat_grads":
+        features = torch.cat([grads["f_dc"], grads["f_rest"]], dim=1)
+        grads.update(f_dc=features[:, :1], f_rest=features[:, 1:])
+    if name == "shard":
+        lo, hi = cap // 3, 2 * cap // 3
+        params = unflat_rows(flat_rows(params)[lo:hi], params)
+        grads = unflat_rows(flat_rows(grads)[lo:hi], grads)
+        state = {label: {k: v[lo:hi].clone() if v.dim() else v for k, v in s.items()}
+                 for label, s in state.items()}
+    return optimizer, grads, state, params
+
+
+def adam_outputs(state, params, device):
+    """Guarded outputs {label: {"param", "mu", "nu", "count"[, "sched_count"]}} for
+    `adam_update_cuda`, and the functions that count their changed guard words."""
+    outs, changed = {}, []
+    for label, s in state.items():
+        outs[label] = {}
+        for k in ("param", "mu", "nu", "count", "sched_count"):
+            if k == "param" or k in s:
+                like = params[label] if k == "param" else s[k]
+                view, fn = _build.guarded(like.shape, like.dtype, device)
+                outs[label][k] = view
+                changed.append(fn)
+    return outs, changed
+
+
+def adam_leaves(params, state) -> list:
+    return [t.clone() for t in (*params.values(),
+                                *(v for s in state.values() for v in s.values()))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ADAM_CASES)
+def test_adam_kernel_matches_plain(cuda_device, case):
+    """New params, mu, nu, count and sched_count bit-equal to `Adam.update_plain` on
+    the card, through `Adam.update` and through the kernel's wrapper into guarded
+    outputs: one launch a call, no host sync, no write outside the outputs, the
+    inputs left as they were."""
+    from langsplat_tpu_torch.train import trainer
+    optimizer, grads, state, params = adam_case(case, cuda_device)
+    inputs = adam_leaves(params, state) + [g.clone() for g in grads.values()]
+    want_p, want_s = optimizer.update_plain(grads, state, params)
+    outs, changed = adam_outputs(state, params, cuda_device)
+    for call in ("update", "wrapper"):
+        launches = _build.LAUNCHES["adam_update"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if call == "update":
+                got_p, got_s = optimizer.update(grads, state, params)
+            else:
+                rates = {k: f(state[k]["sched_count"])
+                         for k, f in optimizer.schedules.items()}
+                got_p, got_s = trainer.adam_update_cuda(grads, state, params,
+                                                        optimizer.lrs, rates, out=outs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["adam_update"] == launches + 1, call
+        assert got_p.keys() == want_p.keys() and got_s.keys() == want_s.keys()
+        for k in want_p:
+            assert torch.equal(got_p[k], want_p[k]), (call, k)
+            assert list(got_s[k]) == list(want_s[k]), (call, k)
+            for leaf in want_s[k]:
+                assert got_s[k][leaf].dtype == want_s[k][leaf].dtype
+                assert torch.equal(got_s[k][leaf], want_s[k][leaf]), (call, k, leaf)
+    assert sum(fn() for fn in changed) == 0
+    for label in outs:
+        assert got_p[label].data_ptr() == outs[label]["param"].data_ptr()
+    after = adam_leaves(params, state) + list(grads.values())
+    assert all(torch.equal(a, b) for a, b in zip(inputs, after))
+
+
+@pytest.mark.cuda
+def test_adam_kernel_bias_corrections_at_every_count(cuda_device):
+    """The kernel's bias corrections, 1 - b^(count + 1) in float32, bit-equal to the
+    plain version's at every count of a 30,000-step run: groups of one element, eight
+    counts a launch, against the plain version's arithmetic over all counts at once."""
+    from langsplat_tpu_torch.train import trainer
+    steps, f32 = 30_000, torch.float32
+    labels = [f"g{i}" for i in range(trainer.ADAM_MAX_GROUPS)]
+    lrs = dict.fromkeys(labels, 1.0)
+    one = {k: torch.full((1,), v, dtype=f32, device=cuda_device)
+           for k, v in (("p", 0.0), ("g", 0.3), ("mu", 0.2), ("nu", 0.05))}
+    got = []
+    for start in range(0, steps, len(labels)):
+        state = {k: dict(count=torch.tensor(start + i, dtype=torch.int32,
+                                            device=cuda_device), mu=one["mu"], nu=one["nu"])
+                 for i, k in enumerate(labels)}
+        new_p, _ = trainer.adam_update_cuda(dict.fromkeys(labels, one["g"]), state,
+                                            dict.fromkeys(labels, one["p"]), lrs, {})
+        got += [new_p[k] for k in labels]
+    got = torch.cat(got)
+    g, mu, nu = (one[k].expand(steps) for k in ("g", "mu", "nu"))
+    mu = g * (1 - trainer.B1) + mu * trainer.B1
+    nu = g * g * (1 - trainer.B2) + nu * trainer.B2
+    c = (torch.arange(steps, dtype=torch.int32, device=cuda_device) + 1).to(f32)
+    direction = (mu / (1 - torch.pow(trainer.B1, c))) / (
+        torch.sqrt(nu / (1 - torch.pow(trainer.B2, c))) + trainer.EPS)
+    want = one["p"] + -1.0 * direction
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rgb", "feature"])
+def test_adam_kernel_runs_once_a_training_step(cuda_device, case):
+    """`launches.adam_update` moves by one in a phase-A and in a phase-B training step."""
+    call = sync_case(case, cuda_device)
+    call()                            # builds the kernels; first-use work
+    launches = _build.LAUNCHES["adam_update"]
+    call()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["adam_update"] == launches + 1
 
 if __name__ == "__main__":
     torch.save(globals()[sys.argv[1]](torch.device("cuda")), sys.argv[2])

@@ -294,7 +294,7 @@ def test_smoke_protocol_every_stage_on_the_cpu(smoke):
                                             "preprocess_fwd", "preprocess_bwd",
                                             "ssim_fwd", "ssim_bwd", "bin_count",
                                             "bin_rank", "bin_emit", "bin_sort",
-                                            "bin_ranges"}
+                                            "bin_ranges", "adam_update"}
     assert set(rep["launches"]["phaseB_levels"]) == {"1", "2", "3"}
     assert rep["device"] == "cpu"
 

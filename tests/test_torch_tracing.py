@@ -285,7 +285,8 @@ def test_counter_views_share_the_registry(monkeypatch):
     _build.LAUNCHES["segsum"] += 1
     assert COUNTERS["launches.segsum"] == 6
     assert set(_build.LAUNCHES) == {"blend_fwd", "blend_bwd", "segsum", "preprocess_fwd",
-                                    "preprocess_bwd", "ssim_fwd", "ssim_bwd", *BIN_KERNELS}
+                                    "preprocess_bwd", "ssim_fwd", "ssim_bwd", *BIN_KERNELS,
+                                    "adam_update"}
     assert set(cameras.FEATURE_LOADS) == {"native", "numpy"}
     assert dict(_build.LAUNCHES) == {k[len("launches."):]: v for k, v in COUNTERS.items()
                                      if k.startswith("launches.")}
@@ -320,7 +321,8 @@ def test_loop_iterations_in_a_trace_window(tmp_path):
     assert result["trace"]["launches"] == {"blend_fwd": 0, "blend_bwd": 0, "segsum": 0,
                                            "preprocess_fwd": 0, "preprocess_bwd": 0,
                                            "ssim_fwd": 0, "ssim_bwd": 0,
-                                           **dict.fromkeys(BIN_KERNELS, 0)}
+                                           **dict.fromkeys(BIN_KERNELS, 0),
+                                           "adam_update": 0}
     kids = set(names(children(s, roots[0])))
     assert {"train_step", "sync.step.dropped", "sync.step.rect_dropped", "sync.step.loss",
             "sync.camera"} <= kids

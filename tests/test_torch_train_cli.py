@@ -251,7 +251,8 @@ def test_profiler_trace_window(scene, tmp_path, window, iterations):
     assert trace["launches"] == {"blend_fwd": 0, "blend_bwd": 0, "segsum": 0,
                                  "preprocess_fwd": 0, "preprocess_bwd": 0, "ssim_fwd": 0,
                                  "ssim_bwd": 0, "bin_count": 0, "bin_rank": 0,
-                                 "bin_emit": 0, "bin_sort": 0, "bin_ranges": 0}
+                                 "bin_emit": 0, "bin_sort": 0, "bin_ranges": 0,
+                                 "adam_update": 0}
     assert not torch.autograd.profiler._is_profiler_enabled
 
 

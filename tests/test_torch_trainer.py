@@ -7,10 +7,15 @@ interpret mode on the JAX side, the plain blend on the port's):
   - the optimizer on identical gradients against optax to 1e-6 relative, over several
     updates with moment zeroing and capacity padding in between, and the optimizer
     state carried across packages both ways (`opt_state_from_numpy`);
-  - `expon_lr` against the JAX schedule.
+  - `expon_lr` against the JAX schedule;
+  - Adam on CPU tensors launches no kernel; the kernel's wrapper (`adam_update_cuda`)
+    rehearsed on CPU memory, its table read and written by an emulation of
+    csrc/adam.cu's arithmetic, bit-equal to the plain version, in every card-test case.
 Gradients are compared before the optimizer: Adam's first step is about lr * sign(g),
 which turns rounding-level differences of near-zero gradients into differences of 2 lr.
 """
+
+import ctypes
 
 import numpy as np
 import jax
@@ -29,11 +34,13 @@ from langsplat_tpu.train import loop as jloop
 from langsplat_tpu.train import trainer as jtr
 from langsplat_tpu_torch.config import OptimizationConfig
 from langsplat_tpu_torch.models.gaussian_field import FIELD_NAMES, from_numpy
+from langsplat_tpu_torch.ops import _build
 from langsplat_tpu_torch.ops.render import RenderSettings
 from langsplat_tpu_torch.train import densify as tdn
 from langsplat_tpu_torch.train import trainer as ttr
 
 from tests.test_projection_and_dense import make_camera
+from tests.test_torch_cuda import ADAM_CASES, adam_case
 from tests.test_tiles import random_scene
 
 # one intra-op thread: the suite runs in several worker processes at once
@@ -244,3 +251,140 @@ def test_expon_lr_matches_jax():
         for step in (0, 1, 57, 999, 5000, 30_000, 40_000):
             np.testing.assert_allclose(float(ts(step)), float(js(step)), rtol=OPT_RTOL)
     assert float(ttr.expon_lr(0.0, 0.0)(10)) == 0.0
+
+
+def test_adam_on_cpu_tensors_launches_no_kernel():
+    """`Adam.update` on CPU tensors takes the plain version: no launch counter moves,
+    and the state matches optax's leaf for leaf."""
+    cfg, jcfg = OptimizationConfig(), JaxOptConfig()
+    params = field_params(False)
+    jp = jtr.extract_params(jax_field(params), False)
+    tp = ttr.extract_params(from_numpy(params, "cpu"), False)
+    jopt, topt = jtr.make_optimizer(jcfg, 2.5, False), ttr.make_optimizer(cfg, 2.5, False)
+    jstate, tstate = jopt.init(jp), topt.init(tp)
+    rng = np.random.default_rng(32)
+    g = {k: rng.normal(size=tp[k].shape).astype(np.float32) for k in ttr.PARAM_KEYS_RGB}
+    launches = dict(_build.LAUNCHES)
+    tp, tstate = topt.update({k: torch.tensor(v) for k, v in g.items()}, tstate, tp)
+    assert dict(_build.LAUNCHES) == launches
+    _, jstate = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, jstate, jp)
+    for a, b in zip(ttr.opt_state_leaves(tstate), jax.tree.leaves(jstate)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=OPT_RTOL, atol=1e-12)
+
+
+def _cpu_array(address: int, n: int, ctype) -> np.ndarray:
+    """n values of `ctype` at `address` of this process's memory, as a writable view."""
+    return np.ctypeslib.as_array((ctype * n).from_address(address)) if n else \
+        np.zeros(0, np.float32)
+
+
+def _cpu_rows(address: int, rows: int, row: int, stride: int) -> np.ndarray:
+    """rows x row float32 values at `address`, rows `stride` elements apart, flat."""
+    if rows * row == 0:
+        return np.zeros(0, np.float32)
+    span = _cpu_array(address, (rows - 1) * stride + row, ctypes.c_float)
+    return np.lib.stride_tricks.as_strided(span, (rows, row), (4 * stride, 4)).reshape(-1)
+
+
+def emulated_adam_update(calls: list):
+    """A stand-in for the `adam_update` entry point on CPU memory: csrc/adam.cu's
+    arithmetic, element by element in float32, read and written through the table's
+    pointers; each call's groups are recorded in `calls`."""
+    def launch(device, table, n_groups, b1, one_minus_b1, b2, one_minus_b2, eps):
+        calls.append([dict(grad=gr.grad, row=gr.row, stride=tuple(gr.stride))
+                      for gr in table[:n_groups]])
+        b1, omb1, b2, omb2, eps = (np.float32(x) for x in (b1, one_minus_b1, b2,
+                                                          one_minus_b2, eps))
+        for gr in table[:n_groups]:
+            count = int(_cpu_array(gr.count, 1, ctypes.c_int32)[0])
+            c = torch.tensor(float(count + 1))
+            bc1 = (1 - torch.pow(ttr.B1, c)).numpy()
+            bc2 = (1 - torch.pow(ttr.B2, c)).numpy()
+            neg_lr = -_cpu_array(gr.rate, 1, ctypes.c_float)[0] if gr.rate else \
+                np.float32(gr.neg_lr)
+            rows = gr.n // gr.row
+            p, g, m, v = (_cpu_rows(getattr(gr, k), rows, gr.row, gr.stride[i])
+                          for i, k in enumerate(("param", "grad", "mu", "nu")))
+            m2 = g * omb1 + m * b1
+            v2 = (g * g) * omb2 + v * b2
+            # the square root as torch's on the CPU, which is not always correctly
+            # rounded there (its AVX-512 path); sqrtf on the card is, as torch's is
+            root = torch.sqrt(torch.from_numpy(v2 / bc2)).numpy()
+            step = (m2 / bc1) / (root + eps)
+            for k, x in (("param_out", p + step * neg_lr), ("mu_out", m2), ("nu_out", v2)):
+                _cpu_array(getattr(gr, k), gr.n, ctypes.c_float)[:] = x
+            _cpu_array(gr.count_out, 1, ctypes.c_int32)[0] = count + 1
+            if gr.sched_count:
+                _cpu_array(gr.sched_count_out, 1, ctypes.c_int32)[0] = \
+                    _cpu_array(gr.sched_count, 1, ctypes.c_int32)[0] + 1
+    return launch
+
+
+def leaves_of(params, state, grads) -> list:
+    return [*params.values(), *grads.values(),
+            *(v for s in state.values() for v in s.values())]
+
+
+@pytest.mark.parametrize("case", ADAM_CASES)
+def test_adam_kernel_wrapper_rehearsed_on_the_cpu(monkeypatch, case):
+    """`adam_update_cuda` on CPU tensors with the entry point emulated: its table (the
+    pointers, sizes, -lr, the schedule's rate, the counts) gives new params and state
+    bit-equal to `Adam.update_plain`, in one launch, leaving the inputs as they were."""
+    calls = []
+    monkeypatch.setattr(ttr, "_ADAM", emulated_adam_update(calls))
+    optimizer, grads, state, params = adam_case(case, torch.device("cpu"))
+    before = [t.clone() for t in leaves_of(params, state, grads)]
+    want_p, want_s = optimizer.update_plain(grads, state, params)
+    rates = {k: f(state[k]["sched_count"]) for k, f in optimizer.schedules.items()}
+    got_p, got_s = ttr.adam_update_cuda(grads, state, params, optimizer.lrs, rates)
+    assert [len(c) for c in calls] == [len(optimizer.labels)]
+    # row-strided gradients are read where they are, without a copy; others through one
+    for k, group in zip(optimizer.labels, calls[0]):
+        if ttr._rows_contiguous(grads[k]):
+            assert group["grad"] == grads[k].data_ptr(), k
+            assert group["stride"][1] == (grads[k].stride(0) if grads[k].dim() else 1), k
+        else:
+            assert group["grad"] != grads[k].data_ptr(), k
+            assert group["stride"][1] == group["row"], k
+    for k in want_p:
+        assert torch.equal(got_p[k], want_p[k]), k
+        assert list(got_s[k]) == list(want_s[k]), k
+        for leaf, want in want_s[k].items():
+            assert got_s[k][leaf].dtype == want.dtype and torch.equal(got_s[k][leaf], want)
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves_of(params, state, grads)))
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "count", "rate", "out", "groups"])
+def test_adam_kernel_wrapper_refuses_what_it_does_not_take(monkeypatch, fault):
+    """float32 leaves of one shape a group, int32 scalar counts, a float32 scalar rate,
+    outputs of the same and at most ADAM_MAX_GROUPS groups: anything else raises before
+    a launch."""
+    calls = []
+    monkeypatch.setattr(ttr, "_ADAM", emulated_adam_update(calls))
+    optimizer, grads, state, params = adam_case("rgb_200", torch.device("cpu"))
+    rates = {k: f(state[k]["sched_count"]) for k, f in optimizer.schedules.items()}
+    lrs, out = optimizer.lrs, None
+    if fault == "dtype":
+        grads = dict(grads, f_dc=grads["f_dc"].double())
+    elif fault == "shape":
+        grads = dict(grads, rotation=grads["rotation"][:, :3])
+    elif fault == "groups":
+        more = [f"more{i}" for i in range(ttr.ADAM_MAX_GROUPS)]
+        params = dict(params, **dict.fromkeys(more, params["opacity"]))
+        grads = dict(grads, **dict.fromkeys(more, grads["opacity"]))
+        state = dict(state, **dict.fromkeys(more, state["opacity"]))
+        lrs = dict(lrs, **dict.fromkeys(more, 1e-3))
+    elif fault == "count":
+        state = dict(state, opacity=dict(state["opacity"], count=torch.zeros(1)))
+    elif fault == "rate":
+        rates = {k: v.reshape(1, 1) for k, v in rates.items()}
+    else:
+        out = {k: dict(param=torch.empty(v.shape[::-1]).permute(
+                           *range(v.dim() - 1, -1, -1)), mu=torch.empty_like(v),
+                       nu=torch.empty_like(v), count=torch.zeros((), dtype=torch.int32),
+                       **({"sched_count": torch.zeros((), dtype=torch.int32)}
+                          if k in rates else {}))
+               for k, v in params.items()}
+    with pytest.raises(ValueError):
+        ttr.adam_update_cuda(grads, state, params, lrs, rates, out=out)
+    assert calls == []
